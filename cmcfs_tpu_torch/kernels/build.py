@@ -1,0 +1,97 @@
+"""Build the port's CUDA kernels with nvcc on first use and bind them.
+
+Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+goes to ``build/cmcfs_tpu_torch/`` at the repository root (git-ignored),
+named by a hash of the sources and flags, so an edited source is never
+served by a stale library.  Nothing is compiled at import time: the
+first ``load_library()`` call builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+BUILD_DIR = os.path.join(ROOT, "build", "cmcfs_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the library's entry points (argtypes, restype)
+SIGNATURES = {
+    "cmcfs_pair_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: str
+    build_seconds: float     # 0.0 when an up-to-date library was reused
+    nvcc_log: str            # ptxas register/spill report of the build
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    for cand in (home and os.path.join(home, "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+
+
+def _sources() -> list[str]:
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; cached per process."""
+    srcs = _sources()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"libcmcfs_kernels_{_digest(srcs)}.so")
+    log = ""
+    seconds = 0.0
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return KernelLibrary(lib=lib, path=path, build_seconds=seconds,
+                         nvcc_log=log)

@@ -1,0 +1,79 @@
+"""Stateful 3D solver (port of cmcfs_tpu/models/solver3d.py, ADI only).
+
+The reference implements only ADI for 3D; cmcfs_tpu adds Explicit and
+Stable, which are not ported yet (ROADMAP A8) and raise here.
+"""
+from __future__ import annotations
+
+from cmcfs_tpu.core.params import FluidParams
+from cmcfs_tpu.geom.grid3d import Grid3D
+
+from ..device import get_device
+from . import adi3d
+from .common3d import (get_layer, grid_arrays, init_state, merge_ok,
+                       update_boundaries)
+
+
+class SolverError(RuntimeError):
+    """Raised where the reference would print and exit(1)."""
+
+
+class AdiSolver3D:
+    name = "ADI"
+
+    def __init__(self, backend: str = "auto", exact: bool = True,
+                 device="cuda"):
+        self.device = get_device(device)
+        self.backend = adi3d.resolve_backend(backend)
+        self.exact = exact
+        self.last_err = 0.0
+
+    def init(self, grid: Grid3D, params: FluidParams) -> None:
+        self.grid = grid
+        self.params = params
+        self.ga = grid_arrays(grid, self.device)
+        self.merge_ok = merge_ok(self.ga)
+        self.cur = init_state(grid, self.device)
+        self.next = self.cur
+        self.pa = adi3d.make_params(params, grid.dx, grid.dy, grid.dz)
+
+    def dispatch_report(self, num_local: int) -> dict:
+        """Which implementation each direction runs (the reference's
+        OutputSegmentsInfo analogue, AdiSolver3D.cpp:270-284)."""
+        return adi3d.dispatch_report(self.backend, num_local, self.merge_ok)
+
+    def update_boundaries(self) -> None:
+        # the reference also re-seeds next's BOUND/VALVE cells
+        # (Solver3D.cpp:28-34)
+        self.cur = update_boundaries(self.cur, self.ga)
+        self.next = update_boundaries(self.next, self.ga)
+
+    def time_step(self, dt: float, num_global: int, num_local: int,
+                  compute_error: bool = True) -> None:
+        nxt, err = adi3d.adi_timestep_3d(
+            self.cur, self.next, self.ga, dt, num_global, num_local, self.pa,
+            backend=self.backend, exact=self.exact,
+            compute_error=compute_error, merge_ok=self.merge_ok)
+        if compute_error:
+            self.last_err = float(err)
+            if not (self.last_err <= adi3d.ERR_THRESHOLD):   # NaN-safe
+                raise SolverError(f"Error is too big! {self.last_err}")
+        # pointer swap (AdiSolver3D.cpp:387-390)
+        self.next = self.cur
+        self.cur = nxt
+
+    def get_layer(self, outdimx: int, outdimy: int, outdimz: int):
+        """The ``next`` layer, which after the swap holds the PRE-step state:
+        the reference's GetLayer off-by-one, kept (PARITY.md:16-17).  The
+        MISSING_VALUE clear applies only to the returned host copy."""
+        return get_layer(self.next, self.ga, outdimx, outdimy, outdimz)
+
+
+def make_solver_3d(name: str, backend: str = "auto", exact: bool = True,
+                   device="cuda"):
+    if name in ("Explicit", "Stable"):
+        raise NotImplementedError(
+            f"3D solver {name!r} is not ported yet (ROADMAP A8)")
+    if name != "ADI":
+        raise KeyError(name)
+    return AdiSolver3D(backend=backend, exact=exact, device=device)

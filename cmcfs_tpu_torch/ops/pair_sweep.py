@@ -1,0 +1,186 @@
+"""The pair sweep: two local ADI iterations of one direction, 4 variables.
+
+Port of ``cmcfs_tpu/ops/pallas_sweep_nl.py::fused_sweep_nl`` (exact and
+gmerge; pcr, bf16 payload, the dual second chain and targeted layout
+writes are ROADMAP B1 items).  Fields keep the JAX package's layout:
+stacked (4, nx, ny, nz) float32 (u, v, w, T) and (nx, ny, nz) int8 masks.
+
+``pair_sweep`` dispatches on the tensors' device:
+
+* CUDA tensors launch the hand-written kernel
+  (``kernels/csrc/pair_sweep.cu``), once per local iteration, or raise;
+* CPU tensors run ``pair_sweep_ref``, the plain PyTorch version with the
+  same arithmetic, which the tests hold against ``cmcfs_tpu`` and
+  ``chip_smoke.py`` holds the kernel against on the card.
+
+Per iteration (scal = models/adi3d._nl_scal):
+  rows     (a, b, c) = build_abc(cls, free, temp[axis]/(2h), vis, 3/dt + 2 vis)
+  rhs      interior: rhs*3/dt (- v_T dT/dh on the sweep velocity,
+           + t_phi*diss_axis(temp) on T); BC rows: 0 if FREE else temp;
+           identity rows 0
+  solve    Thomas in the reference order (ops/tridiag.py)
+  update   out = where(cls != 0, x, out_prev)
+           tn = where(INTERIOR, (temp + out)/2, temp)
+           gmerge: tn = where(INTERIOR, (tn + out)/2, tn)
+Iteration 2 runs on (temp, out_prev) := (tn1, out1); gmerge applies to it
+only.  Derivatives multiply by the reciprocal spacings in ``scal``, as the
+TPU kernel does; ``ops/stencil.d1`` divides.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cmcfs_tpu.core.types import BCtype
+from cmcfs_tpu.ops.masks import BC0, BC1, INTERIOR
+
+from .stencil import shift
+from .sweep_common import build_abc
+from .tridiag import tridiag_solve
+
+_F = np.float32
+
+
+class LaunchCounter:
+    """Kernel launches made by ``pair_sweep`` on CUDA tensors (one per
+    local iteration).  ``chip_smoke.py`` resets it before driving the main
+    path and reads it after, to show the path went through the kernel."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+launches = LaunchCounter()
+
+
+def _check(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis):
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+    if cls.dim() != 3:
+        raise ValueError(f"cls must be (nx, ny, nz), got {tuple(cls.shape)}")
+    shape4 = (4,) + tuple(cls.shape)
+    dev = temp4.device
+    for name, t, dtype, shape in (
+            ("temp4", temp4, torch.float32, shape4),
+            ("rhs4", rhs4, torch.float32, shape4),
+            ("out_prev4", out_prev4, torch.float32, shape4),
+            ("cls", cls, torch.int8, shape4[1:]),
+            ("bcv", bcv, torch.int8, shape4[1:]),
+            ("bct", bct, torch.int8, shape4[1:])):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, temp4 on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    s = np.asarray(scal, dtype=np.float32)
+    if s.shape != (8,):
+        raise ValueError(f"scal must hold 8 values, got shape {s.shape}")
+    return s
+
+
+def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
+               exact: bool, gmerge: bool):
+    """Two local iterations of direction ``axis``; returns (out4, tn4).
+
+    ``scal``: the 8 float32 scalars of ``models/adi3d._nl_scal``."""
+    s = _check(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis)
+    if temp4.device.type == "cpu":
+        return pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s, axis,
+                              exact, gmerge)
+    if temp4.device.type != "cuda":
+        raise RuntimeError(f"pair_sweep has no kernel for {temp4.device}")
+    n = cls.shape[axis]
+    # c', r, d' rows per line, shared by both launches (same stream)
+    scratch = torch.empty((3, n, cls.numel() // n), dtype=torch.float32,
+                          device=temp4.device)
+    out1, tn1 = _launch(temp4, cls, bcv, bct, rhs4, out_prev4, scratch, s,
+                        axis, exact, False)
+    return _launch(tn1, cls, bcv, bct, rhs4, out1, scratch, s, axis, exact,
+                   gmerge)
+
+
+def _launch(temp4, cls, bcv, bct, rhs4, op4, scratch, s, axis, exact,
+            gmerge):
+    from ..kernels.build import load_library
+    fn = load_library().lib.cmcfs_pair_sweep_iter
+    out4 = torch.empty_like(temp4)
+    tn4 = torch.empty_like(temp4)
+    nx, ny, nz = cls.shape
+    with torch.cuda.device(temp4.device):
+        stream = torch.cuda.current_stream(temp4.device).cuda_stream
+        err = fn(temp4.data_ptr(), cls.data_ptr(), bcv.data_ptr(),
+                 bct.data_ptr(), rhs4.data_ptr(), op4.data_ptr(),
+                 out4.data_ptr(), tn4.data_ptr(), scratch.data_ptr(),
+                 nx, ny, nz, axis, int(exact), int(gmerge),
+                 *(float(x) for x in s), stream)
+    if err != 0:
+        raise RuntimeError(f"pair_sweep kernel launch failed: CUDA error "
+                           f"{err} (shape {tuple(cls.shape)}, axis {axis})")
+    launches.count += 1
+    return out4, tn4
+
+
+def _dd(f, inv2h, axis):
+    """(f[i+1] - f[i-1]) * inv2h — the kernel's reciprocal form of d1."""
+    return (shift(f, 1, axis) - shift(f, -1, axis)) * inv2h
+
+
+def _forcing(temp4, axis, s):
+    """t_phi * diss_axis(temp), term order of ops/stencil.diss_*_3d."""
+    o1, o2 = (ax for ax in range(3) if ax != axis)
+    adv = temp4[axis]
+    gav = _dd(adv, s[3], axis)
+    go1 = _dd(temp4[o1], s[3], axis)
+    go2 = _dd(temp4[o2], s[3], axis)
+    h1 = _dd(adv, s[6], o1)
+    h2 = _dd(adv, s[7], o2)
+    if axis == 0:
+        diss = 2 * gav * gav + go1 * go1 + go2 * go2
+    elif axis == 1:
+        diss = go1 * go1 + 2 * gav * gav + go2 * go2
+    else:
+        diss = go1 * go1 + go2 * go2 + 2 * gav * gav
+    return s[5] * (diss + go1 * h1 + go2 * h2)
+
+
+def _iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge):
+    v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T = s[:5]
+    adv2h = temp4[axis] * inv2h
+    free_v = bcv == BCtype.FREE
+    free_t = bct == BCtype.FREE
+    rows_v = build_abc(cls, free_v, adv2h, v_vis_h2,
+                       inv3dt + _F(2.0) * v_vis_h2)
+    rows_t = build_abc(cls, free_t, adv2h, t_vis_h2,
+                       inv3dt + _F(2.0) * t_vis_h2)
+    a, b, c = (torch.stack((rv, rv, rv, rt)) for rv, rt in zip(rows_v, rows_t))
+
+    d_int = rhs4 * inv3dt
+    d_int[axis] = d_int[axis] - v_T * _dd(temp4[3], inv2h, axis)
+    d_int[3] = d_int[3] + _forcing(temp4, axis, s)
+    free4 = torch.stack((free_v, free_v, free_v, free_t))
+    interior = cls == INTERIOR
+    d = torch.where(interior, d_int,
+                    torch.where((cls == BC0) | (cls == BC1),
+                                torch.where(free4, 0.0, temp4), 0.0))
+    x = tridiag_solve(a, b, c, d, axis=axis + 1, exact=exact)
+    out = torch.where(cls != 0, x, op4)
+    tn = torch.where(interior, (temp4 + out) * 0.5, temp4)
+    if gmerge:
+        tn = torch.where(interior, (tn + out) * 0.5, tn)
+    return out, tn
+
+
+def pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
+                   exact: bool, gmerge: bool):
+    """Plain PyTorch pair sweep on any device; returns (out4, tn4)."""
+    s = np.asarray(scal, dtype=np.float32)
+    out1, tn1 = _iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s,
+                               axis, exact, False)
+    return _iteration_ref(tn1, cls, bcv, bct, rhs4, out1, s, axis, exact,
+                          gmerge)

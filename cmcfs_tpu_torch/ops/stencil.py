@@ -1,0 +1,73 @@
+"""Central-difference stencils, 3D dissipation and the divergence metric.
+
+Port of ``cmcfs_tpu/ops/stencil.py`` (3D forms).  Shifted values at the
+array border wrap (``torch.roll``), as in the reference port: every
+consumer masks border cells, which are never NODE_IN.  Grid spacings are
+float32 scalars (``np.float32``) so scalar arithmetic rounds as JAX's
+float32 does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cmcfs_tpu.core.types import NodeType
+
+_F = np.float32
+
+
+def shift(f: torch.Tensor, offset: int, axis: int) -> torch.Tensor:
+    """f shifted so that result[i] = f[i + offset] (wrapping)."""
+    return torch.roll(f, -offset, dims=axis)
+
+
+def d1(f: torch.Tensor, h, axis: int) -> torch.Tensor:
+    """(f[i+1] - f[i-1]) / (2h)"""
+    return (shift(f, 1, axis) - shift(f, -1, axis)) / (_F(2.0) * _F(h))
+
+
+def diss_x_3d(u, v, w, dx, dy, dz):
+    """2 ux^2 + vx^2 + wx^2 + vx*uy + wx*uz (TimeLayer3D.h:553-563)."""
+    ux = d1(u, dx, 0); vx = d1(v, dx, 0); wx = d1(w, dx, 0)
+    uy = d1(u, dy, 1); uz = d1(u, dz, 2)
+    return 2 * ux * ux + vx * vx + wx * wx + vx * uy + wx * uz
+
+
+def diss_y_3d(u, v, w, dx, dy, dz):
+    """uy^2 + 2 vy^2 + wy^2 + uy*vx + wy*vz (TimeLayer3D.h:566-576)."""
+    uy = d1(u, dy, 1); vy = d1(v, dy, 1); wy = d1(w, dy, 1)
+    vx = d1(v, dx, 0); vz = d1(v, dz, 2)
+    return uy * uy + 2 * vy * vy + wy * wy + uy * vx + wy * vz
+
+
+def diss_z_3d(u, v, w, dx, dy, dz):
+    """uz^2 + vz^2 + 2 wz^2 + uz*wx + vz*wy (TimeLayer3D.h:578-588)."""
+    uz = d1(u, dz, 2); vz = d1(v, dz, 2); wz = d1(w, dz, 2)
+    wx = d1(w, dx, 0); wy = d1(w, dy, 1)
+    return uz * uz + vz * vz + 2 * wz * wz + uz * wx + vz * wy
+
+
+def div_error_3d(u, v, w, types, dx, dy, dz) -> torch.Tensor:
+    """Staggered-corner divergence metric (TimeLayer3D.h:595-641): mean
+    over NODE_IN cells off the high borders of |corner-averaged flux
+    divergence|.  Returns a 0-d float32 tensor on the fields' device."""
+    # f(i,j,k) + f(.., -1 along a) + f(-1 along a and b) + f(-1 along b),
+    # summed in cmcfs_tpu's term order (corner_sum_x/_y/_z)
+    fm_j = shift(u, -1, 1)
+    su = u + fm_j + shift(fm_j, -1, 2) + shift(u, -1, 2)
+    fm_i = shift(v, -1, 0)
+    sv = v + fm_i + shift(fm_i, -1, 2) + shift(v, -1, 2)
+    fm_i = shift(w, -1, 0)
+    sw = w + shift(w, -1, 1) + shift(fm_i, -1, 1) + fm_i
+    q = _F(4.0)
+    err_x = (su - shift(su, -1, 0)) * (_F(dz) * _F(dy) / q)
+    err_y = (sv - shift(sv, -1, 1)) * (_F(dx) * _F(dz) / q)
+    err_z = (sw - shift(sw, -1, 2)) * (_F(dx) * _F(dy) / q)
+
+    mask = types == NodeType.IN
+    mask[-1, :, :] = False
+    mask[:, -1, :] = False
+    mask[:, :, -1] = False
+    err = torch.where(mask, torch.abs(err_x + err_y + err_z), 0.0)
+    count = int(mask.sum())
+    return err.sum() / max(count, 1)

@@ -1,0 +1,55 @@
+"""Tridiagonal row build from the line-class and BC masks (3D forms).
+
+Port of ``cmcfs_tpu/ops/sweep_common.py``: ``build_abc``/``build_a`` with
+the 3D boundary rows and the packed-mask encoding.  The dual and 2D
+(``bc2d``) forms are not ported yet (ROADMAP A2).
+"""
+from __future__ import annotations
+
+import torch
+
+from cmcfs_tpu.ops.masks import BC0, BC1, INTERIOR
+
+
+def pack_masks(cls, bcv, bct) -> torch.Tensor:
+    """One f32 code per cell: cls + 4*bc_vel + 8*bc_temp (exact in f32)."""
+    f32 = torch.float32
+    return cls.to(f32) + 4.0 * bcv.to(f32) + 8.0 * bct.to(f32)
+
+
+def decode_pk(pk):
+    """Invert ``pack_masks`` with floor arithmetic: (cls, bcv, bct)."""
+    bct = torch.floor(pk * 0.125)
+    r8 = pk - 8.0 * bct
+    bcv = torch.floor(r8 * 0.25)
+    cls = r8 - 4.0 * bcv
+    return cls, bcv, bct
+
+
+def build_abc(cls, free, adv_2h, vis, b_int):
+    """Row coefficients (a, b, c).
+
+    Interior rows: a = -q/(2h) - nu/h^2, b = b_int, c = q/(2h) - nu/h^2
+    (BuildMatrix, AdiSolver3D.cpp:732-802).  Boundary rows: Dirichlet
+    identity, or the FREE linear-extrapolation (2, -1 | -1, 2) rows
+    (ApplyBC0/1, AdiSolver3D.cpp:804-852).  Identity rows elsewhere."""
+    interior = cls == INTERIOR
+    is_bc0 = cls == BC0
+    is_bc1 = cls == BC1
+    zero = torch.zeros((), dtype=adv_2h.dtype, device=adv_2h.device)
+    a = torch.where(interior, -adv_2h - vis,
+                    torch.where(is_bc1, torch.where(free, -1.0, 0.0), zero))
+    b = torch.where(interior, b_int,
+                    torch.where(is_bc0 | is_bc1,
+                                torch.where(free, 2.0, 1.0), 1.0 + zero))
+    c = torch.where(interior, adv_2h - vis,
+                    torch.where(is_bc0, torch.where(free, -1.0, 0.0), zero))
+    return a, b, c
+
+
+def build_a(cls, free, adv_2h, vis):
+    """Just the sub-diagonal."""
+    zero = torch.zeros((), dtype=adv_2h.dtype, device=adv_2h.device)
+    return torch.where(cls == INTERIOR, -adv_2h - vis,
+                       torch.where(cls == BC1,
+                                   torch.where(free, -1.0, 0.0), zero))
