@@ -1,16 +1,21 @@
 """PyTorch + CUDA port of cmcfs_tpu's 3D ADI main path.
 
 The JAX package ``cmcfs_tpu`` is the reference; this package imports
-``torch`` and never ``jax``.  It shares only the JAX-free host modules of
-``cmcfs_tpu`` (config, params, types, scene and grid construction, line
-classes, NetCDF writers, the CPU timer).
+``torch`` and never ``jax``, and nothing of ``cmcfs_tpu``: it keeps its
+own copies of the JAX-free host modules it needs (``core/``, ``geom/``,
+``ops/masks.py``, ``io/``, ``utils/timer.py``), equal to the originals
+apart from import paths and where the native geometry engine is built.
 
 Layout:
   device.py            explicit device selection (CUDA or raise)
+  core/ geom/ io/      host side: config, params, scenes, grids, NetCDF
+  ops/masks.py         line classes (segments -> dense row classes)
   ops/stencil.py       central differences, dissipation, divergence metric
   ops/tridiag.py       plain batched Thomas solve (reference operation order)
   ops/sweep_common.py  tridiagonal row build from the line classes
   ops/pair_sweep.py    the pair sweep: CUDA kernel wrapper + plain version
+  ops/stream_sweep.py  one local iteration with a caller-built forcing
+  ops/line_sweep.py    row build + Thomas on a caller-built RHS
   kernels/             hand-written CUDA sources and their nvcc build
   models/              grid arrays, the ADI time step, the stateful solver
   cli3d.py             the fluidsolver3d command line

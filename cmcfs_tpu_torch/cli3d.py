@@ -4,7 +4,8 @@ Usage (grammar of reference src/FluidSolver3D/FluidSolver3D.cpp:26-51):
     python -m cmcfs_tpu_torch.cli3d <input> <output_base> <config> [flags]
 
 Flags: ``align``, ``CSV`` (section table as CSV), ``quiet``,
-``backend auto|fused_nl``; ``transpose`` and ``decompose`` are accepted
+``backend auto|fused_nl|fused_full|fused_dma|fused``; ``transpose`` and
+``decompose`` are accepted
 and have no effect, as in cmcfs_tpu.  The run needs a CUDA device.
 Flags of cmcfs_tpu's CLI that the port does not have yet exit with
 status 2 and name their ROADMAP item.
@@ -18,17 +19,16 @@ import time
 import numpy as np
 import torch
 
-from cmcfs_tpu.core.config import Config
-from cmcfs_tpu.core.params import FluidParams
-from cmcfs_tpu.core.scene2d import Scene2D
-from cmcfs_tpu.core.scene3d import Bathymetry, Scene3D
-from cmcfs_tpu.geom.grid3d import Grid3D
-from cmcfs_tpu.geom.raster2d import Grid2D
-from cmcfs_tpu.io import writers
-from cmcfs_tpu.io.project import find_file
-from cmcfs_tpu.utils.timer import CpuTimer, print_time_step_info
-
+from .core.config import Config
+from .core.params import FluidParams
+from .core.scene2d import Scene2D
+from .core.scene3d import Bathymetry, Scene3D
+from .geom.grid3d import Grid3D
+from .geom.raster2d import Grid2D
+from .io import writers
+from .io.project import find_file
 from .models.solver3d import make_solver_3d
+from .utils.timer import CpuTimer, print_time_step_info
 
 # cmcfs_tpu CLI flags the port does not have yet, and where they are queued
 UNPORTED_FLAGS = {
@@ -133,10 +133,13 @@ def run_case(input_path: str, output_base: str, config_path: str,
              quiet: bool = False, max_steps: int | None = None,
              collect_errs: bool = False, device="cuda"):
     """Run one case end to end; returns (solver, errs)."""
+    t0 = time.perf_counter()
     cfg, params, grid = load_case(input_path, config_path, align=align)
+    build_s = time.perf_counter() - t0
     n_in, volume = grid.fluid_volume()
     if not quiet:
-        print(f"Grid = {grid.dimx} x {grid.dimy} x {grid.dimz}")
+        print(f"Grid = {grid.dimx} x {grid.dimy} x {grid.dimz} "
+              f"(host build {build_s:.2f} s)")
         print(f"NODE_IN points = {n_in} of total "
               f"{grid.dimx * grid.dimy * grid.dimz}, volume = {volume:f}")
 
@@ -157,7 +160,8 @@ def run_case(input_path: str, output_base: str, config_path: str,
 
     if not quiet:
         rep = solver.dispatch_report(cfg.num_local)
-        print(f"dispatch: backend={rep['backend']} dirs={rep['dirs']}")
+        print(f"dispatch: backend={rep['backend']} pad={rep['pad']} "
+              f"dirs={rep['dirs']}")
 
     prof = SectionTimer(solver.device)
     timer = CpuTimer()

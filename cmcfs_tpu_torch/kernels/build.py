@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc on first use and bind them.
 
-Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` into one shared
+Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a``, one nvcc process
+per source, all started together; the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library
 goes to ``build/cmcfs_tpu_torch/`` at the repository root (git-ignored),
 named by a hash of the sources and flags, so an edited source is never
@@ -24,8 +25,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 BUILD_DIR = os.path.join(ROOT, "build", "cmcfs_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +33,8 @@ _F = ctypes.c_float
 # C signatures of the library's entry points (argtypes, restype)
 SIGNATURES = {
     "cmcfs_pair_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
+    "cmcfs_stream_sweep_iter": ([_P] * 10 + [_I] * 5 + [_F] * 5 + [_P], _I),
+    "cmcfs_line_sweep": ([_P] * 5 + [_I] * 5 + [_F] * 4 + [_P], _I),
 }
 
 
@@ -68,6 +70,19 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
@@ -77,17 +92,19 @@ def load_library() -> KernelLibrary:
     log = ""
     seconds = 0.0
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+        nvcc = nvcc_path()
+        tag = f"{os.getpid()}.tmp"
+        objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+                for s in srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                    for s, o in zip(srcs, objs)])
+        tmp = f"{path}.{tag}"
+        log += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
         os.replace(tmp, path)
+        for o in objs:
+            os.remove(o)
     lib = ctypes.CDLL(path)
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)

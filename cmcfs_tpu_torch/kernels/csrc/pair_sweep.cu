@@ -1,5 +1,6 @@
 // One local ADI iteration of one sweep direction, all four variables
-// (u, v, w, T), for sm_90a.  The pair sweep is two launches of it.
+// (u, v, w, T), for sm_90a.  The pair sweep is two launches of it; the
+// stream sweep is one launch with the T forcing supplied by the caller.
 //
 // Replaces: cmcfs_tpu/ops/pallas_sweep_nl.py::fused_sweep_nl (kernel body
 //   _make_kernel), which runs both local iterations of a direction in one
@@ -11,6 +12,9 @@
 //   solves with Thomas in the reference operation order (ops/tridiag.py),
 //   and writes UpdateSegment + the NODE_IN merge (+ the folded global
 //   MergeLayer when gmerge is set).
+// Also replaces: cmcfs_tpu/ops/pallas_sweep_stream.py::fused_sweep_stream
+//   (3D form), one local iteration whose T forcing t_phi*diss is computed
+//   by the caller (entry point cmcfs_stream_sweep_iter, forcing != null).
 //
 // What bounds it on this card: memory traffic and latency.  Per iteration a
 //   line's thread streams ~12 field reads (adv, rhs x4, temp x4, out_prev x4,
@@ -78,6 +82,7 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
                        const int8_t* __restrict__ bct,
                        const float* __restrict__ rhs,
                        const float* __restrict__ op,
+                       const float* __restrict__ forcing,
                        float* __restrict__ out, float* __restrict__ tn,
                        float* __restrict__ scratch, int n, long long sp,
                        int n1, long long s1, int n2, long long s2,
@@ -148,6 +153,8 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
           d = rhs[v * fs + o] * s.inv3dt;
           if (v == axis) {
             d = d - s.v_T * ((tT[on] - tT[om]) * s.inv2h);
+          } else if (v == 3 && forcing) {
+            d = d + forcing[o];
           } else if (v == 3) {
             const float gav = (adv[on] - adv[om]) * s.inv2h;
             const float go1 = (t1[on] - t1[om]) * s.inv2h;
@@ -201,17 +208,11 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
   }
 }
 
-}  // namespace
-
-// Launch one iteration on ``stream``.  All fields are contiguous
-// (4, nx, ny, nz) float32; masks (nx, ny, nz) int8; scratch holds
-// 3 * n * (lines) floats, n the sweep length.  Returns cudaGetLastError().
-extern "C" int cmcfs_pair_sweep_iter(
-    const void* temp, const void* cls, const void* bcv, const void* bct,
-    const void* rhs, const void* op, void* out, void* tn, void* scratch,
-    int nx, int ny, int nz, int axis, int exact, int gmerge, float v_vis_h2,
-    float t_vis_h2, float inv3dt, float inv2h, float v_T, float t_phi,
-    float inv2h_1, float inv2h_2, void* stream) {
+int launch(const void* temp, const void* cls, const void* bcv,
+           const void* bct, const void* rhs, const void* op,
+           const void* forcing, void* out, void* tn, void* scratch, int nx,
+           int ny, int nz, int axis, int exact, int gmerge, const Scal& s,
+           void* stream) {
   const long long sx = (long long)ny * nz, sy = nz, sz = 1;
   int n, n1, n2;
   long long sp, s1, s2;
@@ -225,14 +226,45 @@ extern "C" int cmcfs_pair_sweep_iter(
     return (int)cudaErrorInvalidValue;
   }
   if (n < 1 || n1 < 1 || n2 < 1 || n1 > 65535) return (int)cudaErrorInvalidValue;
-  const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, t_phi, inv2h_1,
-               inv2h_2};
   const dim3 block(kThreads);
   const dim3 grid((n2 + kThreads - 1) / kThreads, n1);
   pair_sweep_iter_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)temp, (const int8_t*)cls, (const int8_t*)bcv,
-      (const int8_t*)bct, (const float*)rhs, (const float*)op, (float*)out,
-      (float*)tn, (float*)scratch, n, sp, n1, s1, n2, s2,
-      (long long)nx * ny * nz, axis, exact, gmerge, s);
+      (const int8_t*)bct, (const float*)rhs, (const float*)op,
+      (const float*)forcing, (float*)out, (float*)tn, (float*)scratch, n, sp,
+      n1, s1, n2, s2, (long long)nx * ny * nz, axis, exact, gmerge, s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch one pair-sweep iteration on ``stream``.  All fields are
+// contiguous (4, nx, ny, nz) float32; masks (nx, ny, nz) int8; scratch
+// holds 3 * n * (lines) floats, n the sweep length.  Returns
+// cudaGetLastError().
+extern "C" int cmcfs_pair_sweep_iter(
+    const void* temp, const void* cls, const void* bcv, const void* bct,
+    const void* rhs, const void* op, void* out, void* tn, void* scratch,
+    int nx, int ny, int nz, int axis, int exact, int gmerge, float v_vis_h2,
+    float t_vis_h2, float inv3dt, float inv2h, float v_T, float t_phi,
+    float inv2h_1, float inv2h_2, void* stream) {
+  const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, t_phi, inv2h_1,
+               inv2h_2};
+  return launch(temp, cls, bcv, bct, rhs, op, nullptr, out, tn, scratch, nx,
+                ny, nz, axis, exact, gmerge, s, stream);
+}
+
+// Launch one stream-sweep iteration: as above with the T forcing
+// ``forcing`` (nx, ny, nz) float32 = t_phi * diss_axis(temp) and no
+// global-merge fold.
+extern "C" int cmcfs_stream_sweep_iter(
+    const void* temp, const void* cls, const void* bcv, const void* bct,
+    const void* rhs, const void* op, const void* forcing, void* out,
+    void* tn, void* scratch, int nx, int ny, int nz, int axis, int exact,
+    float v_vis_h2, float t_vis_h2, float inv3dt, float inv2h, float v_T,
+    void* stream) {
+  if (!forcing) return (int)cudaErrorInvalidValue;
+  const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, 0.f, 0.f, 0.f};
+  return launch(temp, cls, bcv, bct, rhs, op, forcing, out, tn, scratch, nx,
+                ny, nz, axis, exact, 0, s, stream);
 }

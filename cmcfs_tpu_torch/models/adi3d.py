@@ -1,18 +1,28 @@
-"""3D ADI time step on the pair sweep (port of cmcfs_tpu/models/adi3d.py).
+"""3D ADI time step (port of cmcfs_tpu/models/adi3d.py, single device).
 
 Numerics replicate src/FluidSolver3D/AdiSolver3D.cpp as the JAX package
 does: per global iteration a Z sweep (rhs cur -> next), a Y sweep (next ->
 half) and an X sweep (half -> next), each ``num_local`` implicit local
-iterations with the NODE_IN merge; the end-of-global MergeLayer folds into
-the X direction's final pair (gmerge).
+iterations with the NODE_IN merge, then the MergeLayer temp <- (temp +
+next)/2 on IN cells, folded into the X direction's final pair (gmerge)
+when X ends on one.
 
-Only the path the 3D main path takes is ported: every direction on the
-pair sweep (``ops/pair_sweep.py``), which needs an even ``num_local``,
-interior rows equal to NODE_IN on each axis (``merge_ok``) and no FREE
-dual endpoints.  Every other path raises ``NotImplementedError`` naming
-its ROADMAP item; none falls through to another path.  The TPU layout
-machinery (xmode, stacked, targeted, carried, step padding) is not
-ported: on the TPU it is bitwise equal to the per-step path.
+Each direction takes one of cmcfs_tpu's four paths, chosen by the same
+predicates (``_dir_path``, adi3d.py:482-507):
+
+* "pair"        the pair sweep (``ops/pair_sweep.py``), num_local/2 times;
+* "pair+stream" the pairs, then one stream iteration (odd num_local);
+* "stream"      num_local stream iterations (``ops/stream_sweep.py``);
+* "fallback"    per iteration: the RHS built here with ``ops/stencil``,
+                the line sweep (``ops/line_sweep.py``) per line class with
+                the ``cls_b``/``take_b`` dual stitch, then UpdateSegment
+                and the NODE_IN merge.
+
+The choice is made on the shape after cmcfs_tpu's step-level tile padding
+decision (``_step_pad``), as cmcfs_tpu's dispatch makes it; the port does
+not pad its tensors, since padded cells are inert identity rows.  The
+TPU's layout machinery (xmode, stacked, targeted, carried) is not ported:
+on the TPU it is bitwise equal to the per-direction path.
 
 The step keeps the fields stacked (4, nx, ny, nz): it stacks ``cur`` and
 ``nxt_prev`` once, and the returned State3D's fields are views of one
@@ -25,25 +35,35 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cmcfs_tpu.core.types import NodeType
-
+from ..core.types import BCtype, NodeType
 from ..ops import stencil
+from ..ops.line_sweep import line_sweep
+from ..ops.masks import BC0, BC1, INTERIOR
 from ..ops.pair_sweep import pair_sweep
+from ..ops.stream_sweep import stream_sweep
 from .common3d import GridArrays3D, State3D
 
 ERR_THRESHOLD = 0.01       # reference AdiSolver3D.h:32
 
+# the pair and stream TPU kernels keep whole lines in VMEM up to this
+# length (pallas_sweep_nl.py:70, pallas_sweep_stream.py:58); the port's
+# kernels have no cap, but the dispatch keeps cmcfs_tpu's decisions
+MAX_SWEEP = 256
+# cmcfs_tpu's step-level pad tiles (adi3d.py:713)
+_STEP_TILES = (8, 128, 128)
+
 _F = np.float32
 _AXES = ((0, "X"), (1, "Y"), (2, "Z"))
-# the reason each non-pair path raises, by cmcfs_tpu's _dir_path name
+_DISS = (stencil.diss_x_3d, stencil.diss_y_3d, stencil.diss_z_3d)
+# backends the port runs, and the ROADMAP item of those it does not
+BACKENDS = ("fused_nl", "fused_full", "fused_dma", "fused")
 _UNPORTED = {
-    "pair+stream": "odd num_local needs the per-iteration stream kernel "
-                   "for its trailing iteration (ROADMAP B4)",
-    "stream": "num_local < 2 needs the per-iteration stream kernel "
-              "(ROADMAP B4)",
-    "fallback": "interior rows differ from NODE_IN on this axis (merge_ok "
-                "false); the per-iteration row-build path is not ported "
-                "(ROADMAP A4, B2)",
+    "scan": "the materialized-row solve path (ROADMAP A4, B6)",
+    "pallas": "the two-pass Pallas Thomas (ROADMAP B6)",
+    "fused_pcr": "the pair kernel's pcr mode (ROADMAP B1 step 5)",
+    "fused_pcr_bf16": "the pair kernel's pcr and bf16 modes (ROADMAP B1 "
+                      "steps 4-5)",
+    "fused_bf16": "the bf16 payloads (ROADMAP B1 step 4)",
 }
 
 
@@ -59,7 +79,7 @@ class ParamsArgs3D(NamedTuple):
 
 
 def make_params(params, dx, dy, dz) -> ParamsArgs3D:
-    """From a ``cmcfs_tpu.core.params.FluidParams`` and the grid spacings."""
+    """From a ``core.params.FluidParams`` and the grid spacings."""
     return ParamsArgs3D(*(_F(x) for x in (params.v_T, params.v_vis,
                                           params.t_vis, params.t_phi,
                                           dx, dy, dz)))
@@ -69,7 +89,9 @@ def _nl_scal(axis: int, pa: ParamsArgs3D, dt) -> np.ndarray:
     """The pair sweep's 8 float32 scalars for direction ``axis``, rounded
     as cmcfs_tpu's float32 arithmetic rounds them (adi3d.py:132-145):
     [v_vis/h^2, t_vis/h^2, 3/dt, 1/(2h), v_T, t_phi, 1/(2h1), 1/(2h2)],
-    h1 < h2 the spacings of the two cross axes in axis order."""
+    h1 < h2 the spacings of the two cross axes in axis order.  The line
+    sweep takes the first 4 (adi3d.py:251-254), the stream sweep the
+    first 5 (:410-411)."""
     dt = _F(dt)
     dxyz = (pa.dx, pa.dy, pa.dz)
     h = dxyz[axis]
@@ -81,53 +103,158 @@ def _nl_scal(axis: int, pa: ParamsArgs3D, dt) -> np.ndarray:
 
 
 def resolve_backend(backend: str) -> str:
-    """``auto`` and ``fused_nl`` both mean the pair sweep."""
-    if backend in ("auto", "fused_nl"):
-        return "fused_nl"
-    raise NotImplementedError(
-        f"backend {backend!r} is not ported; the port runs the pair sweep "
-        "(backend 'auto' or 'fused_nl') — see ROADMAP A4 and queue B")
+    """``auto`` means ``fused_nl``: the card's default, as the TPU's."""
+    backend = "fused_nl" if backend == "auto" else backend
+    if backend in BACKENDS:
+        return backend
+    if backend in _UNPORTED:
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported: {_UNPORTED[backend]}")
+    raise KeyError(f"unknown backend {backend!r}")
 
 
-def _dir_path(merge_ok_ax: bool, num_local: int) -> str:
-    """cmcfs_tpu's _dir_path (adi3d.py:482-507) for backend fused_nl on a
-    single device with dual-free lines; the port runs only "pair"."""
-    if merge_ok_ax and num_local >= 2:
+def _step_pad(shape3: tuple, backend: str):
+    """cmcfs_tpu's step-level tile padding decision (adi3d.py:716-743) on
+    a single device: the (px, py, pz) pads to (8, 128, 128) multiples when
+    they grow the grid by at most 25 %, else None."""
+    if backend not in BACKENDS:
+        return None
+    tgt = tuple(-n % t for n, t in zip(shape3, _STEP_TILES))
+    grow = np.prod([n + p for n, p in zip(shape3, tgt)]) / max(
+        int(np.prod(shape3)), 1)
+    return tgt if any(tgt) and grow <= 1.25 else None
+
+
+def _nl_pair_active(n_sweep: int, backend: str, merge_ok_ax: bool,
+                    dual_free: bool, num_local: int) -> bool:
+    """Does this direction run the pair sweep (adi3d.py:459-479)?"""
+    if backend != "fused_nl" or num_local < 2:
+        return False
+    if not dual_free and num_local % 2 != 0:
+        return False
+    return merge_ok_ax and n_sweep <= MAX_SWEEP
+
+
+def _dir_path(n_sweep: int, backend: str, merge_ok_ax: bool,
+              dual_free: bool, num_local: int) -> str:
+    """cmcfs_tpu's _dir_path (adi3d.py:482-507) on a single device."""
+    if backend not in ("fused_full", "fused_nl") or n_sweep > MAX_SWEEP:
+        return "fallback"
+    if _nl_pair_active(n_sweep, backend, merge_ok_ax, dual_free, num_local):
         return "pair" if num_local % 2 == 0 else "pair+stream"
-    return "stream" if merge_ok_ax else "fallback"
+    return "stream" if merge_ok_ax and dual_free else "fallback"
 
 
-def dispatch_report(backend: str, num_local: int,
+def dispatch_report(shape3: tuple, duals: tuple, backend: str,
+                    num_local: int,
                     merge_ok: tuple = (False, False, False)) -> dict:
-    """Which implementation each direction runs: {"backend", "dirs"}, with
-    dirs {"X"|"Y"|"Z": "pair"|"pair+stream"|"stream"|"fallback"}; anything
-    but "pair" raises in ``adi_timestep_3d``."""
-    return dict(backend=resolve_backend(backend),
-                dirs={name: _dir_path(merge_ok[ax], num_local)
-                      for ax, name in _AXES})
+    """Which implementation each direction runs, decided as cmcfs_tpu's
+    dispatch_report decides it (adi3d.py:746-793) on a single device:
+    {"backend", "pad", "dirs"}, dirs {"X"|"Y"|"Z": "pair"|"pair+stream"|
+    "stream"|"fallback"}.  ``duals``: per axis, the grid keeps a dual pass
+    B (``GridArrays3D.cls_b``)."""
+    backend = resolve_backend(backend)
+    pad = _step_pad(tuple(shape3), backend)
+    pshape = (tuple(n + p for n, p in zip(shape3, pad)) if pad
+              else tuple(shape3))
+    dirs = {name: _dir_path(pshape[ax], backend, merge_ok[ax],
+                            not duals[ax], num_local)
+            for ax, name in _AXES}
+    return dict(backend=backend, pad=pad, dirs=dirs)
 
 
-def _check_dispatch(backend, num_local, merge_ok) -> None:
-    resolve_backend(backend)
-    for ax, name in _AXES:
-        path = _dir_path(merge_ok[ax], num_local)
-        if path != "pair":
-            raise NotImplementedError(
-                f"direction {name} would take cmcfs_tpu's {path!r} path "
-                f"(num_local={num_local}, merge_ok={merge_ok[ax]}): "
-                f"{_UNPORTED[path]}")
+def fallback_rhs(axis, rhs4, temp4, ga, pa, inv3dt):
+    """The fused branch's right-hand sides (adi3d.py:213-249): (d4, d_bc4).
+    d4: rhs*3/dt, - v_T dT/dh on the sweep velocity, + t_phi*diss on T,
+    derivatives by ``stencil`` (which divides by 2h, unlike the pair and
+    stream sweeps); d_bc4: the boundary rows' values, 0 where FREE, else
+    the grid's values."""
+    h = (pa.dx, pa.dy, pa.dz)[axis]
+    d = rhs4 * inv3dt
+    d[axis] = d[axis] - pa.v_T * stencil.d1(temp4[3], h, axis)
+    d[3] = d[3] + pa.t_phi * _DISS[axis](temp4[0], temp4[1], temp4[2],
+                                         pa.dx, pa.dy, pa.dz)
+    free_v = ga.bc_vel == BCtype.FREE
+    free_t = ga.bc_temp == BCtype.FREE
+    d_bc = torch.where(torch.stack((free_v, free_v, free_v, free_t)), 0.0,
+                       torch.stack((ga.val_u, ga.val_v, ga.val_w, ga.val_T)))
+    return d, d_bc
 
 
-def _solve_direction(axis, rhs4, temp4, out4, ga, scal, num_local, exact,
-                     gmerge):
-    """Pair branch of SolveDirection (adi3d.py:1516-1551): num_local/2
-    chained pairs; the gmerge fold rides the final pair only."""
-    pairs = num_local // 2
-    for k in range(pairs):
-        out4, temp4 = pair_sweep(temp4, ga.cls_a[axis], ga.bc_vel,
-                                 ga.bc_temp, rhs4, out4, scal, axis, exact,
-                                 gmerge and k == pairs - 1)
+def fold_d(d, d_bc, cls):
+    """build_d_folded (adi3d.py:238-249): interior rows keep d, boundary
+    rows take the BC values, identity rows 0."""
+    return torch.where(cls == INTERIOR, d,
+                       torch.where((cls == BC0) | (cls == BC1), d_bc, 0.0))
+
+
+def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact):
+    """_build_and_solve_3d's fused branch (adi3d.py:208-303, 372-384):
+    x4 for both line classes, stitched where pass B wins."""
+    d, d_bc = fallback_rhs(axis, rhs4, temp4, ga, pa, scal[2])
+    adv = temp4[axis]
+    s4 = scal[:4]
+    x = line_sweep(adv, ga.pk_a[axis], fold_d(d, d_bc, ga.cls_a[axis]), s4,
+                   axis, exact)
+    if ga.cls_b[axis] is not None:
+        x_b = line_sweep(adv, ga.pk_b[axis], fold_d(d, d_bc, ga.cls_b[axis]),
+                         s4, axis, exact)
+        x = torch.where(ga.take_b[axis], x_b, x)
+    return x
+
+
+def _stream_iteration(axis, rhs4, temp4, out4, ga, pa, scal, exact):
+    """_solve_stream_fused (adi3d.py:387-456): returns (temp4, out4)."""
+    forcing = pa.t_phi * _DISS[axis](temp4[0], temp4[1], temp4[2],
+                                     pa.dx, pa.dy, pa.dz)
+    out4, tn4 = stream_sweep(temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp,
+                             rhs4, out4, forcing, scal[:5], axis, exact)
+    return tn4, out4
+
+
+def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
+                     num_local, exact, gmerge):
+    """SolveDirection (adi3d.py:1516-1566) on the chosen path; returns
+    (temp4, out4)."""
+    if path == "fallback":
+        # UpdateSegment writes every segment cell incl. the BC endpoints
+        # (AdiSolver3D.cpp:707-730); identity rows keep their values
+        written = ga.cls_a[axis] != 0
+        is_in = ga.types == NodeType.IN
+        for _ in range(num_local):
+            x = _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact)
+            out4 = torch.where(written, x, out4)
+            temp4 = torch.where(is_in, (temp4 + out4) / 2.0, temp4)
+        return temp4, out4
+    n_left = num_local
+    if path in ("pair", "pair+stream"):
+        pairs = num_local // 2
+        for k in range(pairs):
+            out4, temp4 = pair_sweep(temp4, ga.cls_a[axis], ga.bc_vel,
+                                     ga.bc_temp, rhs4, out4, scal, axis,
+                                     exact, gmerge and k == pairs - 1)
+        n_left = num_local % 2
+    for _ in range(n_left):
+        temp4, out4 = _stream_iteration(axis, rhs4, temp4, out4, ga, pa,
+                                        scal, exact)
     return temp4, out4
+
+
+def _step_paths(ga: GridArrays3D, backend: str, num_local: int,
+               merge_ok: tuple) -> list:
+    """The path of each axis (0, 1, 2) for this grid; raises where the
+    port lacks the path cmcfs_tpu would take."""
+    duals = tuple(c is not None for c in ga.cls_b)
+    rep = dispatch_report(tuple(ga.types.shape), duals, backend, num_local,
+                          merge_ok)
+    paths = [rep["dirs"][name] for _, name in _AXES]
+    for ax, name in _AXES:
+        if paths[ax] == "pair" and duals[ax]:
+            raise NotImplementedError(
+                f"direction {name} takes the pair sweep on lines with FREE "
+                "dual endpoints; the pair kernel's second chain is not "
+                "ported (ROADMAP B1 step 3)")
+    return paths
 
 
 def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
@@ -140,21 +267,28 @@ def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
     Returns (new_cur, err); ``err`` is a 0-d float32 tensor, or -1.0 when
     ``compute_error`` is False.  ``nxt_prev`` is the persistent next layer;
     only its BOUND/VALVE cells are re-seeded from ``cur``."""
-    _check_dispatch(backend, num_local, merge_ok)
+    paths = _step_paths(ga, backend, num_local, merge_ok)
+    # the global MergeLayer folds into X's final pair (adi3d.py:1727-1745)
+    gfold = paths[0] == "pair"
     scals = [_nl_scal(ax, pa, dt) for ax in range(3)]
     types = ga.types
     is_bv = (types == NodeType.BOUND) | (types == NodeType.VALVE)
+    is_in = types == NodeType.IN
     cur4 = torch.stack(tuple(cur))
     nxt4 = torch.where(is_bv, cur4, torch.stack(tuple(nxt_prev)))
     temp4 = cur4
     half4 = torch.zeros_like(cur4)
+
+    def direction(axis, rhs4, temp4, out4, gmerge=False):
+        return _solve_direction(axis, paths[axis], rhs4, temp4, out4, ga, pa,
+                                scals[axis], num_local, exact, gmerge)
+
     for _ in range(num_global):
-        temp4, nxt4 = _solve_direction(2, cur4, temp4, nxt4, ga, scals[2],
-                                       num_local, exact, False)
-        temp4, half4 = _solve_direction(1, nxt4, temp4, half4, ga, scals[1],
-                                        num_local, exact, False)
-        temp4, nxt4 = _solve_direction(0, half4, temp4, nxt4, ga, scals[0],
-                                       num_local, exact, True)
+        temp4, nxt4 = direction(2, cur4, temp4, nxt4)
+        temp4, half4 = direction(1, nxt4, temp4, half4)
+        temp4, nxt4 = direction(0, half4, temp4, nxt4, gmerge=gfold)
+        if not gfold:
+            temp4 = torch.where(is_in, (temp4 + nxt4) / 2.0, temp4)
     nxt = State3D(*nxt4.unbind(0))
     if compute_error:
         err = stencil.div_error_3d(nxt.u, nxt.v, nxt.w, types,

@@ -10,10 +10,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cmcfs_tpu.core.types import BCtype, MISSING_VALUE, NodeType
-from cmcfs_tpu.geom.grid3d import Grid3D
-from cmcfs_tpu.ops import masks
-from cmcfs_tpu.ops.masks import INTERIOR
+from ..core.types import BCtype, MISSING_VALUE, NodeType
+from ..geom.grid3d import Grid3D
+from ..ops import masks
+from ..ops.masks import INTERIOR
+from ..ops.sweep_common import pack_masks
 
 
 class State3D(NamedTuple):
@@ -31,48 +32,68 @@ class GridArrays3D(NamedTuple):
     val_v: torch.Tensor
     val_w: torch.Tensor
     val_T: torch.Tensor
-    cls_a: tuple            # per-axis line classes, int8
+    cls_a: tuple            # per-axis line classes (pass A), int8
+    cls_b: tuple            # per-axis pass-B classes (None where no duals)
+    take_b: tuple           # per-axis bool: the stitch takes pass B here
+    pk_a: tuple             # per-axis packed masks of cls_a (pack_masks)
+    pk_b: tuple             # ... of cls_b (None where no duals)
 
 
-def _dual_free_classes(types, bcv, bct):
-    """Per-axis line classes with inert duals elided (common3d.py:42-59):
-    a dual cell whose velocity and temperature BCs are both Dirichlet gives
-    pass B the same rows as pass A, so pass B is dropped.  Surviving FREE
-    duals need the pair kernel's second elimination chain, not ported."""
+def _line_classes(types, bcv, bct):
+    """Per-axis (cls_a, cls_b, take_b) with inert duals elided
+    (common3d.py:42-59): when every dual cell is Dirichlet for velocity AND
+    temperature, both roles give the identical identity row, so pass B's
+    solve equals pass A's and the pass is dropped."""
     out = []
     for ax in range(3):
         lc = masks.line_class_3d(types, axis=ax)
-        if lc.cls_b is not None:
-            dual = lc.cls_a != lc.cls_b
-            if ((bcv[dual] == BCtype.FREE).any()
-                    or (bct[dual] == BCtype.FREE).any()):
-                raise NotImplementedError(
-                    f"axis {ax} has dual-endpoint cells with a FREE boundary "
-                    "condition; the dual second chain of the pair sweep is "
-                    "not ported (ROADMAP B1 step 3)")
-        out.append(lc.cls_a)
+        cb, tb = lc.cls_b, lc.take_b
+        if cb is not None:
+            dual = lc.cls_a != cb
+            if ((bcv[dual] != BCtype.FREE).all()
+                    and (bct[dual] != BCtype.FREE).all()):
+                cb = tb = None
+        out.append((lc.cls_a, cb, tb))
     return out
+
+
+def _arrays(dev, types, bcv, bct, vals, classes) -> GridArrays3D:
+    """Assemble GridArrays3D from host arrays; ``dev`` moves one array."""
+    t_bcv, t_bct = dev(bcv), dev(bct)
+
+    def opt(a):
+        return None if a is None else dev(a)
+
+    cls_a = tuple(dev(a) for a, _, _ in classes)
+    cls_b = tuple(opt(b) for _, b, _ in classes)
+    return GridArrays3D(
+        types=dev(types), bc_vel=t_bcv, bc_temp=t_bct,
+        val_u=dev(vals[0]), val_v=dev(vals[1]), val_w=dev(vals[2]),
+        val_T=dev(vals[3]), cls_a=cls_a, cls_b=cls_b,
+        take_b=tuple(None if tb is None else dev(np.asarray(tb, dtype=bool))
+                     for _, _, tb in classes),
+        pk_a=tuple(pack_masks(c, t_bcv, t_bct) for c in cls_a),
+        pk_b=tuple(None if c is None else pack_masks(c, t_bcv, t_bct)
+                   for c in cls_b))
 
 
 def grid_arrays(grid: Grid3D, device) -> GridArrays3D:
     t = np.asarray(grid.types)
     bcv = np.asarray(grid.bc_vel)
     bct = np.asarray(grid.bc_temp)
-    cls = _dual_free_classes(t, bcv, bct)
 
     def dev(a):
         return torch.tensor(np.asarray(a), device=device)
 
-    return GridArrays3D(
-        types=dev(t), bc_vel=dev(bcv), bc_temp=dev(bct),
-        val_u=dev(grid.vel[..., 0]), val_v=dev(grid.vel[..., 1]),
-        val_w=dev(grid.vel[..., 2]), val_T=dev(grid.T),
-        cls_a=tuple(dev(c) for c in cls))
+    return _arrays(dev, t, bcv, bct,
+                   (grid.vel[..., 0], grid.vel[..., 1], grid.vel[..., 2],
+                    grid.T), _line_classes(t, bcv, bct))
 
 
 def merge_ok(ga: GridArrays3D) -> tuple:
     """Per axis: interior rows coincide exactly with NODE_IN cells, so the
-    pair sweep may merge on its own line classes (solver3d.py:47-52)."""
+    pair and stream sweeps may merge on their own line classes
+    (solver3d.py:47-52)."""
     is_in = ga.types == NodeType.IN
     return tuple(bool(torch.equal(c == INTERIOR, is_in)) for c in ga.cls_a)
 
@@ -124,18 +145,17 @@ def from_jax_numpy(state, ga, pa, device):
     (numpy arrays, or anything ``np.asarray`` takes) as the port's, so both
     packages compute on identical inputs.  Returns (state, ga, pa)."""
     from .adi3d import ParamsArgs3D
-    if any(c is not None for c in ga.cls_b):
-        raise NotImplementedError(
-            "grid arrays carry a dual pass B; the dual second chain of the "
-            "pair sweep is not ported (ROADMAP B1 step 3)")
 
     def dev(a):
         return torch.tensor(np.asarray(a), device=device)
 
+    def host(a):
+        return None if a is None else np.asarray(a)
+
     st = State3D(*(dev(f) for f in state))
-    g = GridArrays3D(
-        types=dev(ga.types), bc_vel=dev(ga.bc_vel), bc_temp=dev(ga.bc_temp),
-        val_u=dev(ga.val_u), val_v=dev(ga.val_v), val_w=dev(ga.val_w),
-        val_T=dev(ga.val_T), cls_a=tuple(dev(c) for c in ga.cls_a))
+    g = _arrays(dev, ga.types, ga.bc_vel, ga.bc_temp,
+                (ga.val_u, ga.val_v, ga.val_w, ga.val_T),
+                [(host(a), host(b), host(t))
+                 for a, b, t in zip(ga.cls_a, ga.cls_b, ga.take_b)])
     p = ParamsArgs3D(*(np.float32(np.asarray(x)) for x in pa))
     return st, g, p

@@ -5,10 +5,9 @@ Stable, which are not ported yet (ROADMAP A8) and raise here.
 """
 from __future__ import annotations
 
-from cmcfs_tpu.core.params import FluidParams
-from cmcfs_tpu.geom.grid3d import Grid3D
-
+from ..core.params import FluidParams
 from ..device import get_device
+from ..geom.grid3d import Grid3D
 from . import adi3d
 from .common3d import (get_layer, grid_arrays, init_state, merge_ok,
                        update_boundaries)
@@ -40,7 +39,10 @@ class AdiSolver3D:
     def dispatch_report(self, num_local: int) -> dict:
         """Which implementation each direction runs (the reference's
         OutputSegmentsInfo analogue, AdiSolver3D.cpp:270-284)."""
-        return adi3d.dispatch_report(self.backend, num_local, self.merge_ok)
+        return adi3d.dispatch_report(
+            tuple(self.ga.types.shape),
+            tuple(c is not None for c in self.ga.cls_b), self.backend,
+            num_local, self.merge_ok)
 
     def update_boundaries(self) -> None:
         # the reference also re-seeds next's BOUND/VALVE cells

@@ -24,16 +24,17 @@ Per iteration (scal = models/adi3d._nl_scal):
            gmerge: tn = where(INTERIOR, (tn + out)/2, tn)
 Iteration 2 runs on (temp, out_prev) := (tn1, out1); gmerge applies to it
 only.  Derivatives multiply by the reciprocal spacings in ``scal``, as the
-TPU kernel does; ``ops/stencil.d1`` divides.
+TPU kernel does; ``ops/stencil.d1`` divides.  ``ops/stream_sweep.py`` runs
+one such iteration with a caller-built T forcing, through the same kernel
+(``launch_iteration``) and the same plain iteration (``iteration_ref``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from cmcfs_tpu.core.types import BCtype
-from cmcfs_tpu.ops.masks import BC0, BC1, INTERIOR
-
+from ..core.types import BCtype
+from .masks import BC0, BC1, INTERIOR
 from .stencil import shift
 from .sweep_common import build_abc
 from .tridiag import tridiag_solve
@@ -42,7 +43,7 @@ _F = np.float32
 
 
 class LaunchCounter:
-    """Kernel launches made by ``pair_sweep`` on CUDA tensors (one per
+    """Kernel launches made by one wrapper on CUDA tensors (here: one per
     local iteration).  ``chip_smoke.py`` resets it before driving the main
     path and reads it after, to show the path went through the kernel."""
 
@@ -56,7 +57,9 @@ class LaunchCounter:
 launches = LaunchCounter()
 
 
-def _check(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis):
+def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
+                 nscal=8):
+    """Validate one iteration's operands; returns ``scal`` as float32."""
     if axis not in (0, 1, 2):
         raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
     if cls.dim() != 3:
@@ -79,8 +82,9 @@ def _check(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     s = np.asarray(scal, dtype=np.float32)
-    if s.shape != (8,):
-        raise ValueError(f"scal must hold 8 values, got shape {s.shape}")
+    if s.shape != (nscal,):
+        raise ValueError(f"scal must hold {nscal} values, got shape "
+                         f"{s.shape}")
     return s
 
 
@@ -89,7 +93,7 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
     """Two local iterations of direction ``axis``; returns (out4, tn4).
 
     ``scal``: the 8 float32 scalars of ``models/adi3d._nl_scal``."""
-    s = _check(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis)
+    s = check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis)
     if temp4.device.type == "cpu":
         return pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s, axis,
                               exact, gmerge)
@@ -99,30 +103,42 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
     # c', r, d' rows per line, shared by both launches (same stream)
     scratch = torch.empty((3, n, cls.numel() // n), dtype=torch.float32,
                           device=temp4.device)
-    out1, tn1 = _launch(temp4, cls, bcv, bct, rhs4, out_prev4, scratch, s,
-                        axis, exact, False)
-    return _launch(tn1, cls, bcv, bct, rhs4, out1, scratch, s, axis, exact,
-                   gmerge)
+    out1, tn1 = launch_iteration(temp4, cls, bcv, bct, rhs4, out_prev4,
+                                 None, scratch, s, axis, exact, False)
+    launches.count += 1
+    out4, tn4 = launch_iteration(tn1, cls, bcv, bct, rhs4, out1, None,
+                                 scratch, s, axis, exact, gmerge)
+    launches.count += 1
+    return out4, tn4
 
 
-def _launch(temp4, cls, bcv, bct, rhs4, op4, scratch, s, axis, exact,
-            gmerge):
+def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
+                     axis, exact, gmerge):
+    """One launch of ``pair_sweep.cu``'s iteration kernel: the pair
+    sweep's (``forcing`` None: dissipation in-kernel, 8 scalars) or the
+    stream sweep's (``forcing`` given, 5 scalars, no gmerge)."""
     from ..kernels.build import load_library
-    fn = load_library().lib.cmcfs_pair_sweep_iter
+    lib = load_library().lib
     out4 = torch.empty_like(temp4)
     tn4 = torch.empty_like(temp4)
     nx, ny, nz = cls.shape
     with torch.cuda.device(temp4.device):
         stream = torch.cuda.current_stream(temp4.device).cuda_stream
-        err = fn(temp4.data_ptr(), cls.data_ptr(), bcv.data_ptr(),
-                 bct.data_ptr(), rhs4.data_ptr(), op4.data_ptr(),
-                 out4.data_ptr(), tn4.data_ptr(), scratch.data_ptr(),
-                 nx, ny, nz, axis, int(exact), int(gmerge),
-                 *(float(x) for x in s), stream)
+        ptrs = (temp4.data_ptr(), cls.data_ptr(), bcv.data_ptr(),
+                bct.data_ptr(), rhs4.data_ptr(), op4.data_ptr())
+        outs = (out4.data_ptr(), tn4.data_ptr(), scratch.data_ptr())
+        if forcing is None:
+            err = lib.cmcfs_pair_sweep_iter(
+                *ptrs, *outs, nx, ny, nz, axis, int(exact), int(gmerge),
+                *(float(x) for x in s), stream)
+        else:
+            err = lib.cmcfs_stream_sweep_iter(
+                *ptrs, forcing.data_ptr(), *outs, nx, ny, nz, axis,
+                int(exact), *(float(x) for x in s), stream)
     if err != 0:
-        raise RuntimeError(f"pair_sweep kernel launch failed: CUDA error "
-                           f"{err} (shape {tuple(cls.shape)}, axis {axis})")
-    launches.count += 1
+        name = "pair_sweep" if forcing is None else "stream_sweep"
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"(shape {tuple(cls.shape)}, axis {axis})")
     return out4, tn4
 
 
@@ -149,7 +165,11 @@ def _forcing(temp4, axis, s):
     return s[5] * (diss + go1 * h1 + go2 * h2)
 
 
-def _iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge):
+def iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge,
+                  forcing=None):
+    """One local iteration, plain PyTorch; returns (out4, tn4).  The T
+    equation's forcing is t_phi*diss_axis(temp) from ``s`` unless the
+    caller passes ``forcing`` (the stream sweep)."""
     v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T = s[:5]
     adv2h = temp4[axis] * inv2h
     free_v = bcv == BCtype.FREE
@@ -162,7 +182,8 @@ def _iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge):
 
     d_int = rhs4 * inv3dt
     d_int[axis] = d_int[axis] - v_T * _dd(temp4[3], inv2h, axis)
-    d_int[3] = d_int[3] + _forcing(temp4, axis, s)
+    d_int[3] = d_int[3] + (_forcing(temp4, axis, s) if forcing is None
+                           else forcing)
     free4 = torch.stack((free_v, free_v, free_v, free_t))
     interior = cls == INTERIOR
     d = torch.where(interior, d_int,
@@ -180,7 +201,7 @@ def pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
                    exact: bool, gmerge: bool):
     """Plain PyTorch pair sweep on any device; returns (out4, tn4)."""
     s = np.asarray(scal, dtype=np.float32)
-    out1, tn1 = _iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s,
-                               axis, exact, False)
-    return _iteration_ref(tn1, cls, bcv, bct, rhs4, out1, s, axis, exact,
-                          gmerge)
+    out1, tn1 = iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s,
+                              axis, exact, False)
+    return iteration_ref(tn1, cls, bcv, bct, rhs4, out1, s, axis, exact,
+                         gmerge)

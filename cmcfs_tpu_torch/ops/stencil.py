@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cmcfs_tpu.core.types import NodeType
+from ..core.types import NodeType
 
 _F = np.float32
 

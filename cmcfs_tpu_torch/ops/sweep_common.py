@@ -8,17 +8,20 @@ from __future__ import annotations
 
 import torch
 
-from cmcfs_tpu.ops.masks import BC0, BC1, INTERIOR
+from .masks import BC0, BC1, INTERIOR
 
 
 def pack_masks(cls, bcv, bct) -> torch.Tensor:
-    """One f32 code per cell: cls + 4*bc_vel + 8*bc_temp (exact in f32)."""
-    f32 = torch.float32
-    return cls.to(f32) + 4.0 * bcv.to(f32) + 8.0 * bct.to(f32)
+    """One int8 code per cell: cls + 4*bc_vel + 8*bc_temp (0..15), the
+    values cmcfs_tpu packs into float32.  Built once per grid and axis
+    (``models/common3d.grid_arrays``), read by the line-sweep kernel."""
+    return cls + 4 * bcv + 8 * bct
 
 
 def decode_pk(pk):
-    """Invert ``pack_masks`` with floor arithmetic: (cls, bcv, bct)."""
+    """Invert ``pack_masks`` with floor arithmetic: (cls, bcv, bct) as
+    float32, as cmcfs_tpu decodes its float codes."""
+    pk = pk.to(torch.float32)
     bct = torch.floor(pk * 0.125)
     r8 = pk - 8.0 * bct
     bcv = torch.floor(r8 * 0.25)

@@ -1,0 +1,121 @@
+"""Where a 3D ADI step's device time goes, by kernel, on one GPU.
+
+    python -m cmcfs_tpu_torch.profile3d [--dx 0.00409] [--num-local 2]
+        [--backend auto] [--steps 3] [--inexact]
+
+Builds the extruded bench box (``scripts/gen_box_case.gen``; dx 0.00409
+is 256^3, 0.0027267 is ``bench --case 3d384``'s 383^3) with num_global=4,
+runs one warm-up step, then profiles ``--steps`` steps with
+``torch.profiler`` and prints: the dispatch, ms/step (host clock, device
+synchronised), the device time of each kernel (total, launches, share),
+and the device's busy share of the profiled window (the union of kernel
+intervals over the span from the first to the last recorded event).
+Needs a CUDA device; it never runs on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+from . import cli3d
+from .models.solver3d import AdiSolver3D
+
+
+def _kernel_events(prof):
+    """(name, start_us, end_us) of every device kernel the profiler saw."""
+    out = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((e.name, e.time_range.start, e.time_range.end))
+    return out
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dx", type=float, default=0.00409)
+    ap.add_argument("--num-local", type=int, default=2)
+    ap.add_argument("--backend", default="auto")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--inexact", action="store_true",
+                    help="reciprocal Thomas (exact=False)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile3d needs a CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from scripts.gen_box_case import gen
+
+    work = tempfile.mkdtemp(prefix="cmcfs_profile_")
+    data, cfgp = gen(work, dx=args.dx, time_steps=4, num_global=4,
+                     num_local=args.num_local)
+    cfg, params, grid = cli3d.load_case(data, cfgp)
+    solver = AdiSolver3D(backend=args.backend, exact=not args.inexact)
+    solver.init(grid, params)
+    dt = grid.cycle_len / (grid.num_frames * cfg.time_steps)
+    rep = solver.dispatch_report(cfg.num_local)
+    print(f"grid {grid.dimx}x{grid.dimy}x{grid.dimz}, ng={cfg.num_global} "
+          f"nl={cfg.num_local}, exact={solver.exact}; dispatch: "
+          f"backend={rep['backend']} pad={rep['pad']} dirs={rep['dirs']}")
+
+    def step():
+        solver.update_boundaries()
+        solver.time_step(dt, cfg.num_global, cfg.num_local,
+                         compute_error=False)
+
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"{wall / args.steps * 1e3:.2f} ms/step over {args.steps} profiled "
+          f"steps; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    kernels = _kernel_events(prof)
+    if not kernels:
+        print("the profiler recorded no device kernels", file=sys.stderr)
+        return 1
+    by_name: dict[str, list] = {}
+    for name, s, e in kernels:
+        ent = by_name.setdefault(name, [0, 0.0])
+        ent[0] += 1
+        ent[1] += e - s
+    total = sum(t for _, t in by_name.values())
+    span = (max(e.time_range.end for e in prof.events())
+            - min(e.time_range.start for e in prof.events()))
+    busy = _busy_us([(s, e) for _, s, e in kernels])
+    print(f"device kernel time {total / 1e3:.2f} ms; busy {busy / 1e3:.2f} "
+          f"of {span / 1e3:.2f} ms profiled ({100 * busy / span:.1f} %)")
+    print(f"{'ms':>10}{'launches':>10}{'share':>8}  kernel")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"{t / 1e3:>10.3f}{n:>10}{100 * t / total:>7.1f}%  {name[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

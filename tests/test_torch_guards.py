@@ -14,23 +14,71 @@ from cmcfs_tpu.geom.synthetic import lid_cavity_3d
 from cmcfs_tpu_torch import cli3d
 from cmcfs_tpu_torch.device import get_device
 from cmcfs_tpu_torch.models import adi3d
-from cmcfs_tpu_torch.models.common3d import grid_arrays
+from cmcfs_tpu_torch.models.common3d import grid_arrays, merge_ok
 from cmcfs_tpu_torch.models.solver3d import AdiSolver3D, make_solver_3d
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    code = ("import sys\n"
-            "import cmcfs_tpu_torch, cmcfs_tpu_torch.cli3d\n"
-            "import cmcfs_tpu_torch.models.adi3d, cmcfs_tpu_torch.models.solver3d\n"
-            "import cmcfs_tpu_torch.ops.pair_sweep, cmcfs_tpu_torch.kernels.build\n"
-            "assert 'jax' not in sys.modules, 'jax was imported'\n"
-            "assert 'cmcfs_tpu.models' not in sys.modules\n")
+    """Every module of the port, and chip_smoke.py's imports, load no
+    ``jax*`` module and no module of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import cmcfs_tpu_torch\n"
+            "for m in pkgutil.walk_packages(cmcfs_tpu_torch.__path__,\n"
+            "                               'cmcfs_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import chip_smoke, scripts.gen_box_case\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'cmcfs_tpu'))\n"
+            "assert not bad, bad\n"
+            "assert 'cmcfs_tpu_torch.ops.line_sweep' in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# the port's copies of cmcfs_tpu's JAX-free host modules: verbatim, since
+# their imports are relative; native.py differs only in where it builds
+HOST_COPIES = ["core/types.py", "core/config.py", "core/params.py",
+               "core/scene2d.py", "core/scene3d.py", "geom/raster2d.py",
+               "geom/grid3d.py", "ops/masks.py", "io/netcdf3.py",
+               "io/writers.py", "io/project.py", "utils/timer.py"]
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copies_equal_originals(rel):
+    with open(os.path.join(ROOT, "cmcfs_tpu", rel)) as f, \
+            open(os.path.join(ROOT, "cmcfs_tpu_torch", rel)) as g:
+        assert f.read() == g.read()
+
+
+def test_native_source_equals_original():
+    with open(os.path.join(ROOT, "native", "geom.cpp"), "rb") as f, \
+            open(os.path.join(ROOT, "cmcfs_tpu_torch", "geom", "geom.cpp"),
+                 "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_host_grid_build_equals_jax(tmp_path):
+    """The port's host grid build and line classes give cmcfs_tpu's arrays
+    bit for bit, on the extruded bench box at 65^3."""
+    from cmcfs_tpu import cli3d as jax_cli
+    from cmcfs_tpu.ops import masks as jm
+    from cmcfs_tpu_torch.ops import masks as tm
+    from scripts.gen_box_case import gen
+    data, cfgp = gen(str(tmp_path), dx=0.0164, time_steps=4, num_global=4,
+                     num_local=2)
+    tg = cli3d.build_grid(cli3d.load_case(data, cfgp)[0], data)
+    jg = jax_cli.build_grid(jax_cli.Config.load(cfgp), data)
+    for name in ("types", "bc_vel", "bc_temp", "vel", "T"):
+        assert np.array_equal(getattr(tg, name), getattr(jg, name)), name
+    assert (tg.dx, tg.dy, tg.dz) == (jg.dx, jg.dy, jg.dz)
+    for ax in range(3):
+        lt, lj = tm.line_class_3d(tg.types, ax), jm.line_class_3d(jg.types, ax)
+        assert np.array_equal(lt.cls_a, lj.cls_a)
+        assert (lt.cls_b is None) == (lj.cls_b is None)
 
 
 def test_cuda_device_raises_without_cuda():
@@ -59,29 +107,26 @@ def _box():
     return grid, grid_arrays(grid, "cpu")
 
 
-@pytest.mark.parametrize("case", ["odd_num_local", "num_local_1",
-                                  "merge_not_ok", "backend_scan"])
+@pytest.mark.parametrize("case", ["scan", "pallas", "fused_pcr",
+                                  "fused_bf16"])
 def test_unported_dispatch_raises(case):
+    """Backends whose kernels are not ported raise naming their ROADMAP
+    item; none falls through to another path."""
     grid, ga = _box()
     pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
                            grid.dx, grid.dy, grid.dz)
     cur = tuple(torch.zeros(ga.types.shape) for _ in range(4))
-    kw = dict(num_local=2, backend="auto", merge_ok=(True, True, True))
-    if case == "odd_num_local":
-        kw["num_local"] = 3
-    elif case == "num_local_1":
-        kw["num_local"] = 1
-    elif case == "merge_not_ok":
-        kw["merge_ok"] = (True, False, True)
-    else:
-        kw["backend"] = "scan"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, pa=pa, **kw)
+        adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa, backend=case,
+                              merge_ok=(True, True, True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        AdiSolver3D(backend=case, device="cpu")
 
 
 def test_dispatch_report_names_paths():
-    rep = adi3d.dispatch_report("auto", 3, (True, False, True))
-    assert rep == {"backend": "fused_nl",
+    rep = adi3d.dispatch_report((64, 64, 64), (False, False, False), "auto",
+                                3, (True, False, True))
+    assert rep == {"backend": "fused_nl", "pad": None,
                    "dirs": {"X": "pair+stream", "Y": "fallback",
                             "Z": "pair+stream"}}
 
@@ -93,8 +138,11 @@ def test_unported_solvers_raise(name):
 
 
 def test_free_dual_grid_raises():
-    """A FREE-bc baffle with a hole leaves dual endpoints on X lines that
-    need the pair kernel's second chain (not ported)."""
+    """A FREE-bc baffle with a hole leaves dual endpoints on X lines:
+    ``grid_arrays`` keeps cmcfs_tpu's pass B (cls_b/take_b, inert duals
+    elided on the other axes), and the pair sweep on those lines, which
+    needs the pair kernel's second chain, raises naming ROADMAP B1."""
+    from cmcfs_tpu.models import common3d as jc
     grid = lid_cavity_3d(20, 12, 12)
     mid = 10
     baffle = np.zeros(grid.types.shape, dtype=bool)
@@ -102,5 +150,20 @@ def test_free_dual_grid_raises():
     grid.types[baffle] = NodeType.BOUND
     grid.types[mid, 5:7, 2:-2] = NodeType.IN
     grid.bc_temp[baffle] = BCtype.FREE
-    with pytest.raises(NotImplementedError, match="B1"):
-        grid_arrays(grid, "cpu")
+    ga, jga = grid_arrays(grid, "cpu"), jc.grid_arrays(grid)
+    assert ga.cls_b[0] is not None
+    for ax in range(3):
+        assert np.array_equal(ga.cls_a[ax].numpy(), np.asarray(jga.cls_a[ax]))
+        for mine, ref in ((ga.cls_b[ax], jga.cls_b[ax]),
+                          (ga.take_b[ax], jga.take_b[ax])):
+            assert (mine is None) == (ref is None)
+            if ref is not None:
+                assert np.array_equal(mine.numpy(), np.asarray(ref))
+    pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
+                           grid.dx, grid.dy, grid.dz)
+    cur = tuple(torch.zeros(ga.types.shape) for _ in range(4))
+    mok = merge_ok(ga)
+    assert adi3d.dispatch_report((20, 12, 12), (True, False, False), "auto",
+                                 2, mok)["dirs"]["X"] == "pair"
+    with pytest.raises(NotImplementedError, match="B1 step 3"):
+        adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa, merge_ok=mok)

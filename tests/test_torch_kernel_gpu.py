@@ -1,4 +1,5 @@
-"""The CUDA pair-sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (pair, stream and line sweeps) against their plain
+PyTorch versions, on the card.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips otherwise.  This file imports no JAX, so it also runs on
@@ -14,17 +15,39 @@ import numpy as np
 import pytest
 import torch
 
-from cmcfs_tpu.core.params import FluidParams
-from cmcfs_tpu.core.types import NodeType
 from cmcfs_tpu.geom.synthetic import lid_cavity_3d
+from cmcfs_tpu_torch.core.params import FluidParams
+from cmcfs_tpu_torch.core.types import BCtype, NodeType
 from cmcfs_tpu_torch.models import adi3d
 from cmcfs_tpu_torch.models.common3d import (grid_arrays, init_state,
                                              merge_ok, update_boundaries)
+from cmcfs_tpu_torch.ops import line_sweep as ls
 from cmcfs_tpu_torch.ops import pair_sweep as ps
+from cmcfs_tpu_torch.ops import stream_sweep as ss
 
 
-def _case(device, seed=0):
+def _within(k4, p4):
+    for k, p in zip(k4, p4):
+        bound = 1e-5 * max(1.0, float(p.abs().max()))
+        assert float((k - p).abs().max()) <= bound
+
+
+def _baffle(grid):
+    """The FREE-bc baffle with a hole (__graft_entry__._setup): X lines
+    keep FREE dual endpoints."""
+    nx, ny, _ = grid.types.shape
+    bf = np.zeros(grid.types.shape, dtype=bool)
+    bf[nx // 2, 2:-2, 2:-2] = True
+    grid.types[bf] = NodeType.BOUND
+    grid.types[nx // 2, ny // 2 - 1:ny // 2 + 1, 2:-2] = NodeType.IN
+    grid.bc_temp[bf] = BCtype.FREE
+    return grid
+
+
+def _case(device, seed=0, baffle=False):
     grid = lid_cavity_3d(24, 20, 18)
+    if baffle:
+        grid = _baffle(grid)
     ga = grid_arrays(grid, device)
     pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
                            grid.dx, grid.dy, grid.dz)
@@ -79,3 +102,75 @@ def test_step_on_gpu_matches_cpu():
     for c, g in zip(x_c, x_g):
         bound = 1e-5 * max(1.0, float(c.abs().max()))
         assert float((g - c).abs().max()) <= bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", [((23, 19, 17), 0), ((23, 19, 17), 1),
+                                         ((23, 19, 17), 2), ((300, 7, 9), 0),
+                                         ((9, 7, 300), 2)])
+def test_line_sweep_kernel_matches_plain(shape, axis, exact):
+    """Odd lengths, every axis, and 300-cell lines (past the TPU kernels'
+    288-cell VMEM cap): random classes and BC codes, FREE rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(axis + 5 * exact)
+    pk = torch.tensor(rng.choice([0, 1, 2, 3], shape, p=[.1, .1, .1, .7])
+                      + 4 * rng.integers(0, 2, shape)
+                      + 8 * rng.integers(0, 2, shape), dtype=torch.int8,
+                      device="cuda")
+    adv = torch.tensor(0.2 * rng.standard_normal(shape), dtype=torch.float32,
+                       device="cuda")
+    d4 = torch.tensor(rng.standard_normal((4,) + shape), dtype=torch.float32,
+                      device="cuda")
+    scal = np.array([0.5, 0.7, 30.0, 5.0], dtype=np.float32)
+    before = ls.launches.count
+    x_k = ls.line_sweep(adv, pk, d4, scal, axis, exact)
+    assert ls.launches.count == before + 1
+    x_p = ls.line_sweep_ref(adv, pk, d4, scal, axis, exact)
+    torch.cuda.synchronize()
+    _within(x_k, x_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_stream_kernel_matches_plain(axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ga, pa, temp4, rhs4, op4 = _case("cuda", seed=2)
+    rng = np.random.default_rng(axis)
+    forcing = torch.tensor(0.1 * rng.standard_normal(tuple(ga.types.shape)),
+                           dtype=torch.float32, device="cuda")
+    args = (temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp, rhs4, op4, forcing,
+            adi3d._nl_scal(axis, pa, 0.01)[:5], axis, exact)
+    before = ss.launches.count
+    out_k, tn_k = ss.stream_sweep(*args)
+    assert ss.launches.count == before + 1
+    out_p, tn_p = ss.stream_sweep_ref(*args)
+    torch.cuda.synchronize()
+    _within(out_k, out_p)
+    _within(tn_k, tn_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend, num_local, baffle",
+                         [("fused_dma", 2, False), ("fused", 2, False),
+                          ("fused_full", 2, False), ("auto", 3, False),
+                          ("auto", 1, False), ("auto", 3, True)])
+def test_step_paths_on_gpu_match_cpu(backend, num_local, baffle):
+    """One whole ADI step on each path, on the card (kernels) against the
+    same step on the CPU (plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        ga, pa, temp4, _, _ = _case(dev, seed=3, baffle=baffle)
+        cur = tuple(temp4)
+        new, err = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 2, num_local,
+                                         pa, backend=backend, exact=False,
+                                         merge_ok=merge_ok(ga))
+        steps[dev] = (torch.stack(tuple(new)).cpu(), float(err))
+    (x_c, e_c), (x_g, e_g) = steps["cpu"], steps["cuda"]
+    assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
+    _within(x_g, x_c)
