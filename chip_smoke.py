@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's 3D ADI paths once on one GPU.
+"""Drive the PyTorch + CUDA port's 3D and 2D ADI paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,28 @@ and nvcc.  Phases, each of which raises on failure:
    kernel vs plain;
 9. line-sweep kernel vs plain on that 383^3 state (X / Y / Z, lines past
    the TPU kernels' 288-cell cap) and on the 256^3 box (X), both
-   ``exact`` modes, with CUDA-event times.
+   ``exact`` modes, with CUDA-event times;
+10. the 2D modes and the row solve vs plain: the 2D line sweep on the
+   2D box case (``scripts/gen_box_case.gen_2d``, 1041^2) and on the
+   2048^2 lid cavity, X / Y; the 2D stream sweep on the 1024^2 lid
+   cavity, X / Y, ``first`` both ways; the tridiag_rows kernel on the 2D
+   box's rows (3 variables, X / Y, scan and pallas forms) and on one
+   variable of the 256^3 pair slice's state (X / Y / Z); both ``exact``
+   modes, with CUDA-event times;
+11. 2d1024 (``bench.py --case 2d1024``'s configuration: lid cavity 1024^2,
+   physical parameters, dt 0.0005, ng=2 nl=1, ``exact=False``, backend
+   ``fused_nl``): dispatch stream on X and Y, 2 stream launches per global
+   iteration, ms/step and cell-updates/s, divergence error; one whole
+   step kernel vs plain;
+12. 2d2048: the same at 2048^2, where the dispatch is the line sweep;
+13. the 2D CLI: ``cmcfs_tpu_torch.cli2d.run_case`` on the 2D box case
+   (``fused_dma``: the line sweep) with CDL output and its section times
+   (Prepare, UpdateBoundaries, TimeStep, Output); then one step each of
+   backends ``pallas`` and ``scan`` from its state (tridiag_rows
+   launches), each against the ``fused_dma`` step;
+14. the 3D row path: one step each of ``pallas`` and ``scan`` from the
+   256^3 pair slice's state (96 tridiag_rows launches each), each
+   against the pair step.
 
 Every kernel's launch counter is set to 0 just before a path is driven
 and read just after; launches made to compare a kernel with its plain
@@ -61,12 +82,20 @@ LONG_STEPS = 2
 TIMED_STEPS = 5
 LONG_TIMED_STEPS = 3
 SEED = 0
+# the 2D configurations: bench.py run_bench_2d (bench.py:23-63) and the 2D
+# box case of scripts/gen_box_case.gen_2d, whose dx=0.001 builds 1041^2
+DT2 = 0.0005
+TIMED_STEPS_2D = 10
+BOX2D_DX = 0.001
+BOX2D_SHAPE = (1041, 1041)
+CLI2D_STEPS = 5
 # Kernel vs plain, per variable: |delta| <= TOL * max(1, max|plain|).  The
-# kernel's nvcc build contracts mul-adds into FMAs and rounds the row
-# build / forcing once per fused expression, plain PyTorch rounds every
-# op; the diagonally dominant Thomas rows do not amplify the ulp-level
-# differences.  One launch and one whole step alike; the other backends'
-# steps against the pair step too (the same scheme in other rounding).
+# kernels round every product before they add it (__fmul_rn / __fadd_rn /
+# __fsub_rn), in their plain versions' order of operations, so they match
+# those versions bit for bit; TOL is the bound a kernel must hold, not a
+# rounding allowance.  One launch and one whole step alike; the other
+# backends' steps against the pair step too (the same scheme in another
+# order of operations).
 TOL = 1e-5
 # bound_ms: the least time the card could take, from the published H100
 # SXM peaks (NVIDIA's data sheet): 3.35 TB/s device memory, 67 TFLOP/s
@@ -94,6 +123,27 @@ KERNELS = {
         "cmcfs_tpu/ops/pallas_sweep_stream.py:400",
         # temp4, rhs4, out_prev4, forcing in; 3 int8 masks; out4, tn4 out
         48 + 4 + 3 + 32, 4 * 30),
+    # the 2D modes, timed at the 2d2048 / 2d1024 main-path shapes
+    "line_sweep_2d": (
+        CSRC + "line_sweep.cu",
+        "cmcfs_tpu/ops/pallas_sweep_dma.py:214, "
+        "cmcfs_tpu/ops/pallas_sweep_long.py:293 (t_var=2, bc2d)",
+        # adv, pk (int8), d3 in; x3 out
+        4 + 1 + 12 + 12, 3 * 14),
+    "stream_sweep_2d": (
+        CSRC + "pair_sweep.cu",
+        "cmcfs_tpu/ops/pallas_sweep_stream.py:400 (merge2d)",
+        # temp3, rhs3, out_prev3, forcing in; cls and bct (int8); out3,
+        # tn3 out
+        36 + 4 + 2 + 24, 3 * 30),
+    # per (cell, variable): a, b, c, d in, x out; timed on one 256^3
+    # variable (3D row path) and on the 2D box's 3 variables
+    "tridiag_rows": (
+        CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
+        20, 8),
+    "tridiag_rows_2d": (
+        CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
+        20, 8),
 }
 
 
@@ -221,9 +271,11 @@ def main() -> int:
     from cmcfs_tpu_torch.ops import line_sweep as ls
     from cmcfs_tpu_torch.ops import pair_sweep as ps
     from cmcfs_tpu_torch.ops import stream_sweep as ss
+    from cmcfs_tpu_torch.ops import tridiag_rows as tr
     from cmcfs_tpu_torch.ops.stencil import div_error_3d
 
-    counters = Counters(pair_sweep=ps, line_sweep=ls, stream_sweep=ss)
+    counters = Counters(pair_sweep=ps, line_sweep=ls, stream_sweep=ss,
+                        tridiag_rows=tr)
     rec = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
                "launches": 0, "max_abs_err": 0.0, "ms": None,
                "plain_ms": None, "bound_ms": None, "bound_by": None,
@@ -446,7 +498,9 @@ def main() -> int:
         if got[kernel] != per_step or sum(got.values()) != per_step:
             fail(f"{backend}: launches {got}, expected {per_step} of "
                  f"{kernel}")
-    del ref4, new4, solver, ga
+    # the pair slice's state, step and reference, for phases 10 and 14
+    rows_args, rows_kw, rows_ref4 = args, kw, ref4
+    del new4, solver, ga
 
     # ------------------------------------------------------- 7. odd nl
     phase("7. odd num_local: cli3d.run_case, 256^3 box, ng=4 nl=3")
@@ -536,6 +590,319 @@ def main() -> int:
         print(f"{'256':<6}{'X':<4}{str(exact):<7}{e:>12.3e}{tk:>11.3f}"
               f"{tp:>10.2f}", flush=True)
     print(f"(one launch per call; {smi})")
+
+    del temp4, rhs4, d4, xk, xp, ga
+    torch.cuda.empty_cache()
+
+    # ------------------------------ 10. 2D modes and tridiag_rows vs plain
+    phase("10. the 2D line and stream modes and tridiag_rows vs plain "
+          "PyTorch")
+    from cmcfs_tpu_torch import cli2d
+    from cmcfs_tpu_torch.core.params import FluidParams
+    from cmcfs_tpu_torch.core.scene2d import Scene2D
+    from cmcfs_tpu_torch.geom.raster2d import Grid2D
+    from cmcfs_tpu_torch.geom.synthetic import lid_cavity_2d
+    from cmcfs_tpu_torch.models import adi2d
+    from cmcfs_tpu_torch.models import common2d as c2
+    from scripts.gen_box_case import gen_2d
+
+    # bench.py:38: the 2D bench's physical parameters, start_T 1.0
+    params2 = FluidParams.physical(0.05, 1000.0, 461.495, 0.6, 4200.0)
+    data2, cfgp2 = gen_2d(os.path.join(work, "box2d"), dx=BOX2D_DX,
+                          time_steps=8)
+    cfg2 = cli3d.Config.load(cfgp2)
+
+    def box2d_grid():
+        scene = Scene2D.load(data2, "", dx=cfg2.dx, dy=cfg2.dy)
+        g = Grid2D(scene, start_T=cfg2.baseT, bc_noslip=cfg2.bc_noslip,
+                   bc_strength=cfg2.bc_strength)
+        g.prepare_frame(0, 0.0)
+        return g
+
+    def noisy_2d(grid):
+        """(ga, pa, cur, temp, out): interior noise, BOUND/VALVE cells at
+        their grid values."""
+        ga2 = c2.grid_arrays(grid, dev)
+        base = torch.stack(tuple(c2.update_boundaries(
+            c2.init_state(grid, dev), ga2)))
+        is_in = ga2.types == NodeType.IN
+
+        def noisy():
+            return c2.State2D(*torch.where(is_in, base + 0.01 * torch.randn(
+                base.shape, generator=gen_t, device=dev), base))
+
+        return (ga2, adi2d.make_params(params2, grid.dx, grid.dy, 1.0),
+                noisy(), noisy(), noisy())
+
+    def compare(what, kernel, plain, k_reps=5, p_reps=1):
+        """Check kernel() against plain() per variable (leading axis of
+        each output), then time both in turns; (max err, ms, plain ms)."""
+        outs_k, outs_p = kernel(), plain()
+        torch.cuda.synchronize()
+        if not isinstance(outs_k, tuple):
+            outs_k, outs_p = (outs_k,), (outs_p,)
+        err = max(check_close(what, a, b) for a, b in zip(outs_k, outs_p))
+        tk, tp = in_turns(kernel, plain, k_reps, p_reps)
+        return err, tk, tp
+
+    hdr = (f"{'case':<22}{'dir':<4}{'exact':<7}{'max|d|':>11}"
+           f"{'kernel ms':>11}{'plain ms':>10}")
+    print(hdr)
+    box_grid = box2d_grid()
+    if (box_grid.dimx, box_grid.dimy) != BOX2D_SHAPE:
+        fail(f"2D box is {(box_grid.dimx, box_grid.dimy)}, expected "
+             f"{BOX2D_SHAPE}")
+    for label, grid2 in (("line 1041 box", box_grid),
+                         ("line 2048 lid", lid_cavity_2d(2048, 2048,
+                                                         dx=0.001))):
+        ga2, pa2, cur2, temp2, _ = noisy_2d(grid2)
+        k_ms, p_ms, worst = [], [], 0.0
+        for axis in (0, 1):
+            largs = adi2d.line_args(axis, cur2, temp2, ga2, DT2, pa2)
+            for exact in (True, False):
+                e, tk, tp = compare(
+                    f"{label} {axis} {exact}",
+                    lambda: ls.line_sweep_2d(*largs, axis, exact),
+                    lambda: ls.line_sweep_2d_ref(*largs, axis, exact))
+                k_ms.append(tk)
+                p_ms.append(tp)
+                worst = max(worst, e)
+                print(f"{label:<22}{'XY'[axis]:<4}{str(exact):<7}{e:>11.3e}"
+                      f"{tk:>11.3f}{tp:>10.2f}", flush=True)
+        if label.startswith("line 2048"):
+            note("line_sweep_2d", worst, k_ms, p_ms, 2048 * 2048)
+        else:
+            rec["line_sweep_2d"]["max_abs_err"] = max(
+                rec["line_sweep_2d"]["max_abs_err"], worst)
+    ga2, pa2, cur2, temp2, out2 = noisy_2d(lid_cavity_2d(1024, 1024,
+                                                         dx=0.001))
+    if adi2d.stream_ok_2d(ga2) != (True, True):
+        fail("the 1024^2 lid cavity is not stream-ok")
+    k_ms, p_ms, worst = [], [], 0.0
+    for axis in (0, 1):
+        sargs = adi2d.stream_args(axis, cur2, temp2, out2, ga2, DT2, pa2)
+        for first in (True, False):
+            for exact in (True, False):
+                e, tk, tp = compare(
+                    f"stream 1024 {axis} {first} {exact}",
+                    lambda: ss.stream_sweep_2d(*sargs, axis, exact, first),
+                    lambda: ss.stream_sweep_2d_ref(*sargs, axis, exact,
+                                                   first))
+                k_ms.append(tk)
+                p_ms.append(tp)
+                worst = max(worst, e)
+                print(f"{'stream 1024 first=' + str(first):<22}"
+                      f"{'XY'[axis]:<4}{str(exact):<7}{e:>11.3e}"
+                      f"{tk:>11.3f}{tp:>10.2f}", flush=True)
+    note("stream_sweep_2d", worst, k_ms, p_ms, 1024 * 1024)
+    ga2, pa2, cur2, temp2, _ = noisy_2d(box_grid)
+    k_ms, p_ms, worst = [], [], 0.0
+    for axis in (0, 1):
+        rows = adi2d.row_args(axis, cur2, temp2, ga2, DT2, pa2)
+        for form, recip in (("pallas", True), ("scan", False)):
+            for exact in (True, False):
+                e, tk, tp = compare(
+                    f"rows 2D {axis} {form} {exact}",
+                    lambda: tr.tridiag_rows(*rows, axis=axis + 1,
+                                            exact=exact, recip_row0=recip),
+                    lambda: tr.tridiag_rows_ref(*rows, axis=axis + 1,
+                                                exact=exact,
+                                                recip_row0=recip))
+                k_ms.append(tk)
+                p_ms.append(tp)
+                worst = max(worst, e)
+                print(f"{'rows 1041 box ' + form:<22}{'XY'[axis]:<4}"
+                      f"{str(exact):<7}{e:>11.3e}{tk:>11.3f}{tp:>10.2f}",
+                      flush=True)
+    note("tridiag_rows_2d", worst, k_ms, p_ms, 3 * math.prod(BOX2D_SHAPE))
+    del ga2, cur2, temp2, out2, rows, largs, sargs
+    cur3, nxt3, ga3 = rows_args[:3]
+    temp4, rhs4 = torch.stack(tuple(cur3)), torch.stack(tuple(nxt3))
+    k_ms, p_ms, worst = [], [], 0.0
+    for axis in range(3):
+        scal = adi3d._nl_scal(axis, pa, dt)
+        d, d_bc = adi3d.fallback_rhs(axis, rhs4, temp4, ga3, pa, scal[2])
+        d_t = adi3d.fold_d(d, d_bc, ga3.cls_a[axis])[3]
+        abc = adi3d.row_coeffs(axis, temp4[axis], ga3.cls_a[axis], ga3, pa,
+                               scal, 3)
+        for exact in (True, False):
+            e, tk, tp = compare(
+                f"rows 3D {axis} {exact}",
+                lambda: tr.tridiag_rows(*abc, d_t, axis=axis, exact=exact,
+                                        recip_row0=True)[None],
+                lambda: tr.tridiag_rows_ref(*abc, d_t, axis=axis,
+                                            exact=exact,
+                                            recip_row0=True)[None], 3, 1)
+            k_ms.append(tk)
+            p_ms.append(tp)
+            worst = max(worst, e)
+            print(f"{'rows 256^3 T':<22}{'XYZ'[axis]:<4}{str(exact):<7}"
+                  f"{e:>11.3e}{tk:>11.3f}{tp:>10.2f}", flush=True)
+        del d, d_bc, d_t, abc
+    note("tridiag_rows", worst, k_ms, p_ms, math.prod(shape))
+    print(f"(one launch per call; {smi})")
+    del temp4, rhs4
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 11./12. 2D bench configs
+    def run_2d_config(n, want_path, steps):
+        """bench.py run_bench_2d's step loop at n^2 on ``fused_nl``."""
+        g = lid_cavity_2d(n, n, dx=0.001)
+        ga2 = c2.grid_arrays(g, dev)
+        so = adi2d.stream_ok_2d(ga2)
+        pa2 = adi2d.make_params(params2, g.dx, g.dy, 1.0)
+        rep = adi2d.dispatch_report_2d((n, n), "fused_nl", so)
+        print(f"dispatch: backend=fused_nl stream_ok={so} dirs={rep}")
+        if set(rep.values()) != {want_path}:
+            fail(f"2D dispatch is not all {want_path}: {rep}")
+        kernel = {"stream": "stream_sweep", "line": "line_sweep"}[want_path]
+        kw2 = dict(backend="fused_nl", exact=False, stream_ok=so)
+        cur = c2.init_state(g, dev)
+        cur, err, _ = adi2d.adi_timestep_2d(cur, ga2, DT2, 2, 1, pa2, **kw2)
+        torch.cuda.synchronize()
+        counters.reset()
+        iters = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cur, err, it = adi2d.adi_timestep_2d(cur, ga2, DT2, 2, 1, pa2,
+                                                 **kw2)
+            iters.append(it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counters.read()
+        want = {k: 0 for k in got}
+        want[kernel] = 2 * sum(iters)
+        err = float(err)
+        print(f"global iterations per step {iters}; launches {got} "
+              f"(expected {want})")
+        print(f"{wall / steps * 1e3:.3f} ms/step, "
+              f"{n * n * steps / wall:.4e} cell-updates/s over {steps} "
+              f"steps; divergence error {err:.6e} ({smi})", flush=True)
+        if got != want:
+            fail(f"2D launch counts {got} != {want}")
+        if not (math.isfinite(err) and err <= 10 * adi2d.ERR_THRESHOLD) or \
+                not all(bool(torch.isfinite(f).all()) for f in cur):
+            fail(f"2D state not finite or divergence error {err} too big")
+        attr = {"stream": "stream_sweep_2d", "line": "line_sweep_2d"}[
+            want_path]
+        mod = ss if want_path == "stream" else ls
+        new_k, _, it_k = adi2d.adi_timestep_2d(cur, ga2, DT2, 2, 1, pa2,
+                                               **kw2)
+        setattr(adi2d, attr, getattr(mod, attr + "_ref"))
+        try:
+            t0 = time.perf_counter()
+            new_p, _, it_p = adi2d.adi_timestep_2d(cur, ga2, DT2, 2, 1, pa2,
+                                                   **kw2)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        finally:
+            setattr(adi2d, attr, getattr(mod, attr))
+        if it_k != it_p:
+            fail(f"whole 2D step: {it_k} global iterations with the kernel, "
+                 f"{it_p} with the plain version")
+        e = check_close("whole 2D step kernel vs plain", torch.stack(new_k),
+                        torch.stack(new_p))
+        print(f"whole step kernel vs plain: max|delta| {e:.3e}; plain step "
+              f"{plain_s * 1e3:.1f} ms")
+        return got[kernel], wall / steps * 1e3, e
+
+    phase(f"11. 2d1024: lid cavity 1024^2, fused_nl, ng=2 nl=1, "
+          f"{TIMED_STEPS_2D} timed steps")
+    n_launch, ms_1024, e = run_2d_config(1024, "stream", TIMED_STEPS_2D)
+    rec["stream_sweep_2d"]["launches"] = n_launch
+    note("stream_sweep_2d", e, [], [], 0)
+    timing["2d1024 stream"] = {False: ms_1024}
+
+    phase(f"12. 2d2048: lid cavity 2048^2, fused_nl, ng=2 nl=1, "
+          f"{TIMED_STEPS_2D} timed steps")
+    n_launch, ms_2048, e = run_2d_config(2048, "line", TIMED_STEPS_2D)
+    rec["line_sweep_2d"]["launches"] = n_launch
+    note("line_sweep_2d", e, [], [], 0)
+    timing["2d2048 line"] = {False: ms_2048}
+
+    # ------------------------------------------------------ 13. 2D CLI
+    phase(f"13. 2D CLI: cli2d.run_case, 2D box case {BOX2D_SHAPE}, "
+          f"{CLI2D_STEPS} steps")
+    counters.reset()
+    solver2, errs2, prof2 = cli2d.run_case(
+        data2, "", os.path.join(work, "box2d.cdl"), cfgp2,
+        max_steps=CLI2D_STEPS, collect_errs=True, device=dev)
+    torch.cuda.synchronize()
+    got = counters.read()
+    rep = solver2.dispatch_report()
+    print(f"dispatch: backend={solver2.backend} dirs={rep}; launches {got}")
+    if solver2.backend != "fused_dma" or set(rep.values()) != {"line"}:
+        fail(f"2D CLI dispatch {solver2.backend} {rep}, expected the line "
+             "sweep on fused_dma")
+    if got["line_sweep"] < 2 * cfg2.num_global * CLI2D_STEPS or any(
+            v for k, v in got.items() if k != "line_sweep"):
+        fail(f"2D CLI launch counts {got}")
+    if len(errs2) != CLI2D_STEPS or not all(math.isfinite(x)
+                                            for x in errs2):
+        fail(f"2D CLI divergence errors {errs2}")
+    sec = {k: t / c * 1e3 for k, (c, t) in prof2.events.items()}
+    print(f"divergence error per step {errs2}; ms per call: "
+          f"{json.dumps(sec)} ({smi})")
+    print(f"CDL output {os.path.getsize(os.path.join(work, 'box2d.cdl'))} "
+          "bytes")
+    scene2 = solver2.grid.scene
+    dt2 = scene2.cycle_length() / (scene2.num_frames() * cfg2.time_steps)
+    solver2.update_boundaries()
+    args2 = (solver2.cur, solver2.ga, dt2, cfg2.num_global, cfg2.num_local,
+             solver2.pa)
+    kw2 = dict(exact=solver2.exact, stream_ok=solver2.stream_ok)
+    ref3, _, it_ref = adi2d.adi_timestep_2d(*args2, backend="fused_dma",
+                                            **kw2)
+    ref3 = torch.stack(ref3)
+    rows_launches = 0
+    for backend in ("pallas", "scan"):
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new3, _, it = adi2d.adi_timestep_2d(*args2, backend=backend, **kw2)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        got = counters.read()
+        want = {k: 0 for k in got}
+        want["tridiag_rows"] = 2 * cfg2.num_local * it
+        e = check_close(f"2D {backend} step vs fused_dma step",
+                        torch.stack(new3), ref3)
+        print(f"{backend}: {it} global iterations, launches {got}, "
+              f"max|delta| vs fused_dma step {e:.3e}, {step_ms:.2f} ms for "
+              f"the step ({smi})")
+        if got != want or it != it_ref:
+            fail(f"2D {backend}: launches {got} (expected {want}), "
+                 f"{it} global iterations (fused_dma {it_ref})")
+        rows_launches += got["tridiag_rows"]
+        note("tridiag_rows_2d", e, [], [], 0)
+    rec["tridiag_rows_2d"]["launches"] = rows_launches
+    del solver2, args2, ref3, new3
+
+    # ------------------------------------------------- 14. 3D row path
+    phase("14. the 3D row path: one step each of pallas and scan from the "
+          "pair slice's state, against the pair step")
+    rows_per_step = 4 * 3 * NUM_LOCAL * NUM_GLOBAL
+    rows_launches = 0
+    for backend in ("pallas", "scan"):
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new4 = torch.stack(adi3d.adi_timestep_3d(*rows_args, backend=backend,
+                                                 **rows_kw)[0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        got = counters.read()
+        e = check_close(f"3D {backend} step vs pair step", new4, rows_ref4)
+        print(f"{backend}: launches {got}, max|delta| vs pair step {e:.3e}, "
+              f"{step_ms:.2f} ms for the step ({smi})", flush=True)
+        if got["tridiag_rows"] != rows_per_step or \
+                sum(got.values()) != rows_per_step:
+            fail(f"3D {backend}: launches {got}, expected {rows_per_step} "
+                 "of tridiag_rows")
+        rows_launches += got["tridiag_rows"]
+        note("tridiag_rows", e, [], [], 0)
+        del new4
+    rec["tridiag_rows"]["launches"] = rows_launches
 
     # ------------------------------------------------------------ result
     phase("result")

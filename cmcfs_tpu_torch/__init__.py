@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of cmcfs_tpu's 3D ADI main path.
+"""PyTorch + CUDA port of cmcfs_tpu's 3D and 2D ADI solvers.
 
 The JAX package ``cmcfs_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``, and nothing of ``cmcfs_tpu``: it keeps its
@@ -10,13 +10,14 @@ Layout:
   device.py            explicit device selection (CUDA or raise)
   core/ geom/ io/      host side: config, params, scenes, grids, NetCDF
   ops/masks.py         line classes (segments -> dense row classes)
-  ops/stencil.py       central differences, dissipation, divergence metric
-  ops/tridiag.py       plain batched Thomas solve (reference operation order)
+  ops/stencil.py       central differences, dissipation, divergence metrics
+  ops/tridiag.py       batched Thomas solve: plain version and backends
+  ops/tridiag_rows.py  Thomas on materialized rows: CUDA kernel wrapper
   ops/sweep_common.py  tridiagonal row build from the line classes
   ops/pair_sweep.py    the pair sweep: CUDA kernel wrapper + plain version
   ops/stream_sweep.py  one local iteration with a caller-built forcing
   ops/line_sweep.py    row build + Thomas on a caller-built RHS
   kernels/             hand-written CUDA sources and their nvcc build
-  models/              grid arrays, the ADI time step, the stateful solver
-  cli3d.py             the fluidsolver3d command line
+  models/              grid arrays, the ADI time steps, the stateful solvers
+  cli3d.py, cli2d.py   the fluidsolver3d and fluidsolver2d command lines
 """

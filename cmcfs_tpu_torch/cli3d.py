@@ -4,9 +4,9 @@ Usage (grammar of reference src/FluidSolver3D/FluidSolver3D.cpp:26-51):
     python -m cmcfs_tpu_torch.cli3d <input> <output_base> <config> [flags]
 
 Flags: ``align``, ``CSV`` (section table as CSV), ``quiet``,
-``backend auto|fused_nl|fused_full|fused_dma|fused``; ``transpose`` and
-``decompose`` are accepted
-and have no effect, as in cmcfs_tpu.  The run needs a CUDA device.
+``backend auto|fused_nl|fused_full|fused_dma|fused|scan|pallas``;
+``transpose`` and ``decompose`` are accepted and have no effect, as in
+cmcfs_tpu.  The run needs a CUDA device.
 Flags of cmcfs_tpu's CLI that the port does not have yet exit with
 status 2 and name their ROADMAP item.
 """

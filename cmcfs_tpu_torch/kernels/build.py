@@ -4,9 +4,10 @@ Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a``, one nvcc process
 per source, all started together; the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library
 goes to ``build/cmcfs_tpu_torch/`` at the repository root (git-ignored),
-named by a hash of the sources and flags, so an edited source is never
-served by a stale library.  Nothing is compiled at import time: the
-first ``load_library()`` call builds.
+named by a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source is never served by a stale library.
+Nothing is compiled at import time: the first ``load_library()`` call
+builds.  Each kernel wrapper counts its launches in a ``LaunchCounter``.
 """
 from __future__ import annotations
 
@@ -29,13 +30,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the library's entry points (argtypes, restype)
 SIGNATURES = {
     "cmcfs_pair_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
-    "cmcfs_stream_sweep_iter": ([_P] * 10 + [_I] * 5 + [_F] * 5 + [_P], _I),
-    "cmcfs_line_sweep": ([_P] * 5 + [_I] * 5 + [_F] * 4 + [_P], _I),
+    "cmcfs_stream_sweep_iter": ([_P] * 10 + [_I] * 8 + [_F] * 5 + [_P], _I),
+    "cmcfs_line_sweep": ([_P] * 5 + [_I] * 6 + [_F] * 4 + [_P], _I),
+    "cmcfs_tridiag_rows": ([_P] * 6 + [_L, _I, _L, _I, _I, _P], _I),
 }
+
+
+class LaunchCounter:
+    """Kernel launches made by one wrapper on CUDA tensors.  ``chip_smoke.py``
+    resets it before driving the main path and reads it after, to show the
+    path went through the kernel."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +79,7 @@ def _sources() -> list[str]:
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

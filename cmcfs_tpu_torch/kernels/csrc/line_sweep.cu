@@ -1,13 +1,16 @@
 // Row build + Thomas solve of one sweep direction on caller-built
-// right-hand sides, all four variables (u, v, w, T), for sm_90a.
+// right-hand sides, all variables of the step: u, v, w, T in 3D, u, v, T
+// in 2D (``nvars`` 4 or 3; T is the last), for sm_90a.
 //
 // Replaces three TPU kernels that compute one function and differ only in
 //   how they tile VMEM: cmcfs_tpu/ops/pallas_sweep_dma.py::fused_sweep_dma
 //   (lines up to 288 cells), pallas_sweep_long.py::fused_sweep_long (longer
 //   lines, chunked, (c', d') staged through HBM) and
-//   pallas_sweep.py::fused_sweep (the BlockSpec form).  Each builds the
-//   tridiagonal rows in-kernel from the advection field and one packed mask
-//   (code = cls + 4*bc_vel + 8*bc_temp, sweep_common.build_abc) and runs
+//   pallas_sweep.py::fused_sweep (the BlockSpec form), in their 3D form and
+//   their 2D one (t_var = 2, bc2d: the 2D ADI solver's rows, called with
+//   bc_temp as both masks, cmcfs_tpu/models/adi2d.py:92-137).  Each builds
+//   the tridiagonal rows in-kernel from the advection field and one packed
+//   mask (code = cls + 4*bc_vel + 8*bc_temp, build_abc of rows.cuh) and runs
 //   Thomas in pallas_sweep_dma._solve_var's order: a = 0 on row 0, c = 0 on
 //   row n-1, denom = b - a*c', two IEEE divisions (exact) or one IEEE
 //   reciprocal and two multiplies, back substitution x = d' - c'*x_next.
@@ -21,11 +24,14 @@
 //   ratio, and a serial dependence along each line.
 //
 // What the design does about it: one thread per (line, variable), so at
-//   384^3 the card holds 590k independent chains; the four variables of a
-//   line are the four warps of a block (threadIdx.y), so their adv and mask
-//   reads of one row hit L1 together.  threadIdx.x runs along the
-//   contiguous cross dimension, so the X and Y sweeps read and write whole
-//   coalesced rows; (c', d') sit in global scratch laid out [row][line], so
+//   384^3 the card holds 590k independent chains (a 2D grid only 3-6k: its
+//   launches are bound by latency, not bytes); the variables of a line are
+//   the warps of a block (threadIdx.y), so their adv and mask reads of one
+//   row hit L1 together.  A 2D field (nx, ny) is swept as the 3D view
+//   (1, nx, ny) on axis 1 (X, coalesced) or 2 (Y, strided).  threadIdx.x
+//   runs along the contiguous cross dimension, so the X and Y sweeps read
+//   and write whole coalesced rows; (c', d') sit in global scratch laid out
+//   [row][line], so
 //   their accesses coalesce on every axis and no length cap exists.  The Z
 //   sweep, whose line is the contiguous axis, reads strided and relies on L1
 //   reuse across consecutive rows.  Not done yet: shared-memory tiles for
@@ -34,25 +40,23 @@
 
 #include <cuda_runtime.h>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr int kBC0 = 1;       // ops/masks.py line classes
-constexpr int kBC1 = 2;
-constexpr int kInterior = 3;
-constexpr int kVars = 4;      // u, v, w, T
 constexpr int kLines = 32;    // lines per block (threadIdx.x)
 
 struct Scal {                 // [v_vis/h^2, t_vis/h^2, 3/dt, 1/(2h)], float32
   float v_vis_h2, t_vis_h2, inv3dt, inv2h;
 };
 
-__global__ void __launch_bounds__(kLines * kVars)
+__global__ void __launch_bounds__(kLines * 4)
 line_sweep_kernel(const float* __restrict__ adv,
                   const int8_t* __restrict__ pk,
                   const float* __restrict__ d4, float* __restrict__ x4,
                   float* __restrict__ scratch, int n, long long sp, int n1,
                   long long s1, int n2, long long s2, long long fs, int exact,
-                  Scal s) {
+                  int nvars, Scal s) {
   const int i2 = blockIdx.x * kLines + threadIdx.x;
   const int i1 = blockIdx.y;
   const int v = threadIdx.y;
@@ -61,12 +65,14 @@ line_sweep_kernel(const float* __restrict__ adv,
   const long long line = (long long)i1 * n2 + i2;
   const long long base = i1 * s1 + i2 * s2;
   float* cp = scratch + (long long)v * n * lines + line;  // c' of row p at cp[p*lines]
-  float* dp = scratch + (long long)(kVars + v) * n * lines + line;
+  float* dp = scratch + (long long)(nvars + v) * n * lines + line;
   const float* d = d4 + v * fs;
   float* x = x4 + v * fs;
-  const float vis = v == 3 ? s.t_vis_h2 : s.v_vis_h2;
+  const int t_var = nvars - 1;
+  const bool bc2d = is_2d(nvars);
+  const float vis = v == t_var ? s.t_vis_h2 : s.v_vis_h2;
   const float b_int = s.inv3dt + 2.0f * vis;
-  const int free_shift = v == 3 ? 3 : 2;   // bc_temp or bc_vel bit
+  const int free_shift = v == t_var ? 3 : 2;   // bc_temp or bc_vel bit
 
   float c_prev = 0.f, d_prev = 0.f;
   for (int p = 0; p < n; ++p) {
@@ -74,26 +80,9 @@ line_sweep_kernel(const float* __restrict__ adv,
     const int code = pk[o];
     const int cl = code & 3;
     const bool free = (code >> free_shift) & 1;
-    const float adv2h = adv[o] * s.inv2h;
-    // sweep_common.build_abc, 3D form
+    const float adv2h = __fmul_rn(adv[o], s.inv2h);   // rounded, as plain
     float a, b, c;
-    if (cl == kInterior) {
-      a = -adv2h - vis;
-      b = b_int;
-      c = adv2h - vis;
-    } else if (cl == kBC0) {
-      a = 0.f;
-      b = free ? 2.f : 1.f;
-      c = free ? -1.f : 0.f;
-    } else if (cl == kBC1) {
-      a = free ? -1.f : 0.f;
-      b = free ? 2.f : 1.f;
-      c = 0.f;
-    } else {
-      a = 0.f;
-      b = 1.f;
-      c = 0.f;
-    }
+    build_abc(cl, free, bc2d, adv2h, vis, b_int, a, b, c);
     if (p == 0) a = 0.f;
     if (p == n - 1) c = 0.f;
     const float denom = __fsub_rn(b, __fmul_rn(a, c_prev));
@@ -124,14 +113,16 @@ line_sweep_kernel(const float* __restrict__ adv,
 }  // namespace
 
 // Launch one line sweep on ``stream``.  adv (nx, ny, nz) float32, pk
-// (nx, ny, nz) int8, d4 and x4 contiguous (4, nx, ny, nz) float32; scratch
-// holds 2 * 4 * n * (lines) floats, n the sweep length.  Returns
+// (nx, ny, nz) int8, d4 and x4 contiguous (nvars, nx, ny, nz) float32;
+// scratch holds 2 * nvars * n * (lines) floats, n the sweep length;
+// the last variable (T) takes t_vis and the bc_temp bit, the others v_vis
+// and the bc_vel bit; nvars 3 (2D) selects the 2D FREE rows.  Returns
 // cudaGetLastError().
 extern "C" int cmcfs_line_sweep(const void* adv, const void* pk,
                                 const void* d4, void* x4, void* scratch,
                                 int nx, int ny, int nz, int axis, int exact,
-                                float v_vis_h2, float t_vis_h2, float inv3dt,
-                                float inv2h, void* stream) {
+                                int nvars, float v_vis_h2, float t_vis_h2,
+                                float inv3dt, float inv2h, void* stream) {
   const long long sx = (long long)ny * nz, sy = nz, sz = 1;
   int n, n1, n2;
   long long sp, s1, s2;
@@ -144,13 +135,14 @@ extern "C" int cmcfs_line_sweep(const void* adv, const void* pk,
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  if (n < 1 || n1 < 1 || n2 < 1 || n1 > 65535) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n1 < 1 || n2 < 1 || n1 > 65535 || nvars < 3 || nvars > 4)
+    return (int)cudaErrorInvalidValue;
   const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h};
-  const dim3 block(kLines, kVars);
+  const dim3 block(kLines, nvars);
   const dim3 grid((n2 + kLines - 1) / kLines, n1);
   line_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)adv, (const int8_t*)pk, (const float*)d4, (float*)x4,
       (float*)scratch, n, sp, n1, s1, n2, s2, (long long)nx * ny * nz, exact,
-      s);
+      nvars, s);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,10 @@ predicates (``_dir_path``, adi3d.py:482-507):
 * "fallback"    per iteration: the RHS built here with ``ops/stencil``,
                 the line sweep (``ops/line_sweep.py``) per line class with
                 the ``cls_b``/``take_b`` dual stitch, then UpdateSegment
-                and the NODE_IN merge.
+                and the NODE_IN merge.  Backends ``scan`` and ``pallas``
+                take this path with materialized (a, b, c, d) rows per
+                variable, solved by ``ops/tridiag`` (the tridiag_rows
+                kernel; ``solve_with_cls``, adi3d.py:305-332).
 
 The choice is made on the shape after cmcfs_tpu's step-level tile padding
 decision (``_step_pad``), as cmcfs_tpu's dispatch makes it; the port does
@@ -41,6 +44,8 @@ from ..ops.line_sweep import line_sweep
 from ..ops.masks import BC0, BC1, INTERIOR
 from ..ops.pair_sweep import pair_sweep
 from ..ops.stream_sweep import stream_sweep
+from ..ops.sweep_common import build_abc
+from ..ops.tridiag import tridiag_solve
 from .common3d import GridArrays3D, State3D
 
 ERR_THRESHOLD = 0.01       # reference AdiSolver3D.h:32
@@ -55,11 +60,13 @@ _STEP_TILES = (8, 128, 128)
 _F = np.float32
 _AXES = ((0, "X"), (1, "Y"), (2, "Z"))
 _DISS = (stencil.diss_x_3d, stencil.diss_y_3d, stencil.diss_z_3d)
-# backends the port runs, and the ROADMAP item of those it does not
-BACKENDS = ("fused_nl", "fused_full", "fused_dma", "fused")
+# backends the port runs, and the ROADMAP item of those it does not; the
+# fused ones are cmcfs_tpu's step-pad list (adi3d.py:728-732) as far as
+# ported, scan and pallas solve materialized rows
+FUSED = ("fused_nl", "fused_full", "fused_dma", "fused")
+BACKENDS = FUSED + ("scan", "pallas")
 _UNPORTED = {
-    "scan": "the materialized-row solve path (ROADMAP A4, B6)",
-    "pallas": "the two-pass Pallas Thomas (ROADMAP B6)",
+    "pcr": "parallel cyclic reduction (ROADMAP B1 step 5)",
     "fused_pcr": "the pair kernel's pcr mode (ROADMAP B1 step 5)",
     "fused_pcr_bf16": "the pair kernel's pcr and bf16 modes (ROADMAP B1 "
                       "steps 4-5)",
@@ -116,8 +123,9 @@ def resolve_backend(backend: str) -> str:
 def _step_pad(shape3: tuple, backend: str):
     """cmcfs_tpu's step-level tile padding decision (adi3d.py:716-743) on
     a single device: the (px, py, pz) pads to (8, 128, 128) multiples when
-    they grow the grid by at most 25 %, else None."""
-    if backend not in BACKENDS:
+    they grow the grid by at most 25 %, else None; None for the
+    row backends (scan, pallas), as cmcfs_tpu pads only its fused list."""
+    if backend not in FUSED:
         return None
     tgt = tuple(-n % t for n, t in zip(shape3, _STEP_TILES))
     grow = np.prod([n + p for n, p in zip(shape3, tgt)]) / max(
@@ -188,17 +196,47 @@ def fold_d(d, d_bc, cls):
                        torch.where((cls == BC0) | (cls == BC1), d_bc, 0.0))
 
 
-def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact):
-    """_build_and_solve_3d's fused branch (adi3d.py:208-303, 372-384):
-    x4 for both line classes, stitched where pass B wins."""
+def row_coeffs(axis, adv, cls, ga, pa, scal, vi):
+    """(a, b, c) of variable ``vi``'s materialized rows (solve_with_cls,
+    adi3d.py:310-322; its ``_bc_rows_3d`` boundary rows, :194-205, are
+    build_abc's 3D rows); advection divides by 2h, as cmcfs_tpu's rows
+    do.  u, v and w share theirs."""
+    h = (pa.dx, pa.dy, pa.dz)[axis]
+    vis = scal[1] if vi == 3 else scal[0]
+    free = (ga.bc_temp if vi == 3 else ga.bc_vel) == BCtype.FREE
+    return build_abc(cls, free, adv / (_F(2.0) * h), vis,
+                     scal[2] + _F(2.0) * vis)
+
+
+def _solve_rows(axis, d4, adv, cls, ga, pa, scal, exact, backend):
+    """solve_with_cls (adi3d.py:305-332), single device: one variable at a
+    time, so one variable's rows are alive at once."""
+    xs = []
+    for vi in range(4):
+        if vi in (0, 3):
+            a, b, c = row_coeffs(axis, adv, cls, ga, pa, scal, vi)
+        xs.append(tridiag_solve(a, b, c, d4[vi], axis=axis, exact=exact,
+                                backend=backend))
+    return torch.stack(xs)
+
+
+def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact, backend):
+    """_build_and_solve_3d (adi3d.py:208-384) on a single device: the fused
+    branch (the line sweep) or, for scan and pallas, the row path; x4 for
+    both line classes, stitched where pass B wins."""
     d, d_bc = fallback_rhs(axis, rhs4, temp4, ga, pa, scal[2])
     adv = temp4[axis]
-    s4 = scal[:4]
-    x = line_sweep(adv, ga.pk_a[axis], fold_d(d, d_bc, ga.cls_a[axis]), s4,
-                   axis, exact)
+    if backend in FUSED:
+        def solve(pk, cls):
+            return line_sweep(adv, pk, fold_d(d, d_bc, cls), scal[:4], axis,
+                              exact)
+    else:
+        def solve(pk, cls):
+            return _solve_rows(axis, fold_d(d, d_bc, cls), adv, cls, ga, pa,
+                               scal, exact, backend)
+    x = solve(ga.pk_a[axis], ga.cls_a[axis])
     if ga.cls_b[axis] is not None:
-        x_b = line_sweep(adv, ga.pk_b[axis], fold_d(d, d_bc, ga.cls_b[axis]),
-                         s4, axis, exact)
+        x_b = solve(ga.pk_b[axis], ga.cls_b[axis])
         x = torch.where(ga.take_b[axis], x_b, x)
     return x
 
@@ -213,7 +251,7 @@ def _stream_iteration(axis, rhs4, temp4, out4, ga, pa, scal, exact):
 
 
 def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
-                     num_local, exact, gmerge):
+                     num_local, exact, gmerge, backend):
     """SolveDirection (adi3d.py:1516-1566) on the chosen path; returns
     (temp4, out4)."""
     if path == "fallback":
@@ -222,7 +260,8 @@ def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
         written = ga.cls_a[axis] != 0
         is_in = ga.types == NodeType.IN
         for _ in range(num_local):
-            x = _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact)
+            x = _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact,
+                                 backend)
             out4 = torch.where(written, x, out4)
             temp4 = torch.where(is_in, (temp4 + out4) / 2.0, temp4)
         return temp4, out4
@@ -267,6 +306,7 @@ def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
     Returns (new_cur, err); ``err`` is a 0-d float32 tensor, or -1.0 when
     ``compute_error`` is False.  ``nxt_prev`` is the persistent next layer;
     only its BOUND/VALVE cells are re-seeded from ``cur``."""
+    backend = resolve_backend(backend)
     paths = _step_paths(ga, backend, num_local, merge_ok)
     # the global MergeLayer folds into X's final pair (adi3d.py:1727-1745)
     gfold = paths[0] == "pair"
@@ -281,7 +321,8 @@ def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
 
     def direction(axis, rhs4, temp4, out4, gmerge=False):
         return _solve_direction(axis, paths[axis], rhs4, temp4, out4, ga, pa,
-                                scals[axis], num_local, exact, gmerge)
+                                scals[axis], num_local, exact, gmerge,
+                                backend)
 
     for _ in range(num_global):
         temp4, nxt4 = direction(2, cur4, temp4, nxt4)

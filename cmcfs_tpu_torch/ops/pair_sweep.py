@@ -34,37 +34,28 @@ import numpy as np
 import torch
 
 from ..core.types import BCtype
+from ..kernels.build import LaunchCounter
 from .masks import BC0, BC1, INTERIOR
 from .stencil import shift
 from .sweep_common import build_abc
-from .tridiag import tridiag_solve
+from .tridiag_rows import tridiag_rows_ref
 
 _F = np.float32
 
-
-class LaunchCounter:
-    """Kernel launches made by one wrapper on CUDA tensors (here: one per
-    local iteration).  ``chip_smoke.py`` resets it before driving the main
-    path and reads it after, to show the path went through the kernel."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
-launches = LaunchCounter()
+launches = LaunchCounter()     # one per local iteration
 
 
 def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
-                 nscal=8):
-    """Validate one iteration's operands; returns ``scal`` as float32."""
-    if axis not in (0, 1, 2):
-        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
-    if cls.dim() != 3:
-        raise ValueError(f"cls must be (nx, ny, nz), got {tuple(cls.shape)}")
-    shape4 = (4,) + tuple(cls.shape)
+                 nscal=8, ndim=3):
+    """Validate one iteration's operands, ``ndim``-D fields of ndim + 1
+    variables (3D: u, v, w, T; 2D: u, v, T); returns ``scal`` as
+    float32."""
+    if axis not in range(ndim):
+        raise ValueError(f"axis must be in 0..{ndim - 1}, got {axis}")
+    if cls.dim() != ndim:
+        raise ValueError(f"cls must have {ndim} dims, got "
+                         f"{tuple(cls.shape)}")
+    shape4 = (ndim + 1,) + tuple(cls.shape)
     dev = temp4.device
     for name, t, dtype, shape in (
             ("temp4", temp4, torch.float32, shape4),
@@ -113,10 +104,14 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
 
 
 def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
-                     axis, exact, gmerge):
+                     axis, exact, gmerge, axis_var=None, first=False):
     """One launch of ``pair_sweep.cu``'s iteration kernel: the pair
     sweep's (``forcing`` None: dissipation in-kernel, 8 scalars) or the
-    stream sweep's (``forcing`` given, 5 scalars, no gmerge)."""
+    stream sweep's (``forcing`` given, 5 scalars, no gmerge).  Fields are
+    (nvars, nx, ny, nz), masks (nx, ny, nz); ``axis`` is the sweep axis of
+    that shape.  Three variables (u, v, T) on the view (1, nx, ny) are the
+    2D stream mode (the 2D rows and the ``merge2d`` update with ``first``),
+    which names the advecting velocity ``axis_var``."""
     from ..kernels.build import load_library
     lib = load_library().lib
     out4 = torch.empty_like(temp4)
@@ -134,7 +129,9 @@ def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
         else:
             err = lib.cmcfs_stream_sweep_iter(
                 *ptrs, forcing.data_ptr(), *outs, nx, ny, nz, axis,
-                int(exact), *(float(x) for x in s), stream)
+                int(exact), temp4.shape[0],
+                axis if axis_var is None else axis_var, int(first),
+                *(float(x) for x in s), stream)
     if err != 0:
         name = "pair_sweep" if forcing is None else "stream_sweep"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -189,7 +186,7 @@ def iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge,
     d = torch.where(interior, d_int,
                     torch.where((cls == BC0) | (cls == BC1),
                                 torch.where(free4, 0.0, temp4), 0.0))
-    x = tridiag_solve(a, b, c, d, axis=axis + 1, exact=exact)
+    x = tridiag_rows_ref(a, b, c, d, axis=axis + 1, exact=exact)
     out = torch.where(cls != 0, x, op4)
     tn = torch.where(interior, (temp4 + out) * 0.5, temp4)
     if gmerge:

@@ -1,6 +1,6 @@
-"""Central-difference stencils, 3D dissipation and the divergence metric.
+"""Central-difference stencils, dissipation and the divergence metrics.
 
-Port of ``cmcfs_tpu/ops/stencil.py`` (3D forms).  Shifted values at the
+Port of ``cmcfs_tpu/ops/stencil.py`` (2D and 3D forms).  Shifted values at the
 array border wrap (``torch.roll``), as in the reference port: every
 consumer masks border cells, which are never NODE_IN.  Grid spacings are
 float32 scalars (``np.float32``) so scalar arithmetic rounds as JAX's
@@ -24,6 +24,32 @@ def shift(f: torch.Tensor, offset: int, axis: int) -> torch.Tensor:
 def d1(f: torch.Tensor, h, axis: int) -> torch.Tensor:
     """(f[i+1] - f[i-1]) / (2h)"""
     return (shift(f, 1, axis) - shift(f, -1, axis)) / (_F(2.0) * _F(h))
+
+
+def diss_x_2d(u, v, dx, dy):
+    """2 ux^2 + vx^2 + uy*vx (TimeLayer2D.h:63-71)."""
+    ux = d1(u, dx, 0); vx = d1(v, dx, 0); uy = d1(u, dy, 1)
+    return 2 * ux * ux + vx * vx + uy * vx
+
+
+def diss_y_2d(u, v, dx, dy):
+    """uy^2 + 2 vy^2 + vx*uy (TimeLayer2D.h:73-81)."""
+    vx = d1(v, dx, 0); uy = d1(u, dy, 1); vy = d1(v, dy, 1)
+    return uy * uy + 2 * vy * vy + vx * uy
+
+
+def div_error_2d(u, v, types, dx, dy) -> torch.Tensor:
+    """Mean |div| over all-IN 2x2 quads (TimeLayer2D.h:88-102), with the
+    reference's operator-precedence quirk ``dy*du_j + du_{j+1}/2`` kept
+    verbatim, as cmcfs_tpu keeps it.  A 0-d float32 tensor; no host sync."""
+    is_in = types == NodeType.IN
+    quad = is_in[:-1, :-1] & is_in[1:, :-1] & is_in[:-1, 1:] & is_in[1:, 1:]
+    u00 = u[:-1, :-1]; u10 = u[1:, :-1]; u01 = u[:-1, 1:]; u11 = u[1:, 1:]
+    v00 = v[:-1, :-1]; v10 = v[1:, :-1]; v01 = v[:-1, 1:]; v11 = v[1:, 1:]
+    tx = _F(dy) * (u10 - u00) + (u11 - u01) / 2
+    ty = _F(dx) * (v01 - v00) + (v11 - v10) / 2
+    err = torch.where(quad, torch.abs(tx + ty), 0.0)
+    return err.sum() / quad.sum().clamp(min=1)
 
 
 def diss_x_3d(u, v, w, dx, dy, dz):

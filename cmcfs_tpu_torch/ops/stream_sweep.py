@@ -1,8 +1,8 @@
 """The stream sweep: one local ADI iteration with a caller-built forcing.
 
-Port of ``cmcfs_tpu/ops/pallas_sweep_stream.py::fused_sweep_stream``, 3D
-form (4 variables; the 2D ``bc2d``/``merge2d`` modes wait for ROADMAP A9).
-It is one iteration of the pair sweep's arithmetic (``ops/pair_sweep.py``)
+Port of ``cmcfs_tpu/ops/pallas_sweep_stream.py::fused_sweep_stream``, in
+its 3D form (``stream_sweep``, 4 variables) and its 2D ``merge2d`` form
+(``stream_sweep_2d``, below).  The 3D form is one iteration of the pair sweep's arithmetic (``ops/pair_sweep.py``)
 with one difference: the T equation's forcing ``t_phi * diss_axis(temp)``
 is computed by the caller with ``ops/stencil`` (adi3d.py:402-409) instead
 of in the kernel.  Derivatives multiply by 1/(2h), Dirichlet values come
@@ -14,18 +14,34 @@ from ``temp``, and the update is
 with no global-merge fold.  ``scal`` = [v_vis/h^2, t_vis/h^2, 3/dt,
 1/(2h), v_T] in float32.
 
-``stream_sweep`` dispatches on the tensors' device: CUDA tensors launch
+2D (adi2d.py:180-217, pallas_sweep_stream.py:287-294): fields (3, nx, ny)
+(u, v, T), masks (nx, ny), ``cls`` the line classes of the sweep axis and
+``bct`` both BC masks; ``scal`` = [v_vis/h^2, t_vis/h^2, 1/dt, 1/(2h),
+v_T]; the velocity ``axis`` advects and takes - v_T dT/dh; the FREE rows
+are the 2D forms; the update is the copy-then-merge on INTERIOR cells
+(the caller guarantees INTERIOR == NODE_IN, ``models/adi2d.stream_ok_2d``):
+
+    out = where(INTERIOR, x, out_prev)
+    tn  = where(INTERIOR, x if first else (temp + x)/2, temp)
+
+Both entry points dispatch on the tensors' device: CUDA tensors launch
 the stream entry point of ``kernels/csrc/pair_sweep.cu`` (it shares the
-pair sweep's per-iteration device code) or raise; CPU tensors run
-``stream_sweep_ref``, the plain PyTorch version.
+pair sweep's per-iteration device code) or raise; CPU tensors run the
+plain PyTorch version (``stream_sweep_ref``, ``stream_sweep_2d_ref``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .pair_sweep import (LaunchCounter, check_inputs, iteration_ref,
-                         launch_iteration)
+from ..core.types import BCtype
+from ..kernels.build import LaunchCounter
+from .masks import BC0, BC1, INTERIOR
+from .pair_sweep import _dd, check_inputs, iteration_ref, launch_iteration
+from .sweep_common import build_abc
+from .tridiag_rows import tridiag_rows_ref
+
+_F = np.float32
 
 launches = LaunchCounter()
 
@@ -35,11 +51,7 @@ def stream_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
     """One local iteration of direction ``axis``; returns (out4, tn4)."""
     s = check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
                      nscal=5)
-    if (forcing.device != temp4.device or forcing.dtype != torch.float32
-            or tuple(forcing.shape) != tuple(cls.shape)
-            or not forcing.is_contiguous()):
-        raise ValueError("forcing must be a contiguous float32 (nx, ny, nz) "
-                         "tensor on temp4's device")
+    _check_forcing(forcing, temp4, cls)
     if temp4.device.type == "cpu":
         return stream_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4,
                                 forcing, s, axis, exact)
@@ -54,9 +66,64 @@ def stream_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
     return out
 
 
+def _check_forcing(forcing, temp, cls):
+    if (forcing.device != temp.device or forcing.dtype != torch.float32
+            or tuple(forcing.shape) != tuple(cls.shape)
+            or not forcing.is_contiguous()):
+        raise ValueError(f"forcing must be a contiguous float32 "
+                         f"{tuple(cls.shape)} tensor on {temp.device}")
+
+
 def stream_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
                      axis: int, exact: bool):
     """Plain PyTorch stream sweep on any device; returns (out4, tn4)."""
     s = np.asarray(scal, dtype=np.float32)
     return iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s, axis,
                          exact, False, forcing=forcing)
+
+
+def stream_sweep_2d(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
+                    axis: int, exact: bool, first: bool):
+    """One 2D local iteration of direction ``axis``; returns (out3, tn3)."""
+    s = check_inputs(temp3, cls, bct, bct, rhs3, out_prev3, scal, axis,
+                     nscal=5, ndim=2)
+    _check_forcing(forcing, temp3, cls)
+    if temp3.device.type == "cpu":
+        return stream_sweep_2d_ref(temp3, cls, bct, rhs3, out_prev3, forcing,
+                                   s, axis, exact, first)
+    if temp3.device.type != "cuda":
+        raise RuntimeError(f"stream_sweep has no kernel for {temp3.device}")
+    n = cls.shape[axis]
+    scratch = torch.empty((3, n, cls.numel() // n), dtype=torch.float32,
+                          device=temp3.device)
+    # the 3D kernel on the view (1, nx, ny): X is its axis 1, Y its axis 2
+    out3, tn3 = launch_iteration(
+        temp3[:, None], cls[None], bct[None], bct[None], rhs3[:, None],
+        out_prev3[:, None], forcing[None], scratch, s, axis + 1, exact,
+        False, axis_var=axis, first=first)
+    launches.count += 1
+    return out3.squeeze(1), tn3.squeeze(1)
+
+
+def stream_sweep_2d_ref(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
+                        axis: int, exact: bool, first: bool):
+    """Plain PyTorch 2D stream sweep on any device; returns (out3, tn3)."""
+    v_vis_h2, t_vis_h2, inv_dt, inv2h, v_T = np.asarray(scal, dtype=_F)
+    adv2h = temp3[axis] * inv2h
+    free = bct == BCtype.FREE
+    rows_v = build_abc(cls, free, adv2h, v_vis_h2,
+                       inv_dt + _F(2.0) * v_vis_h2, bc2d=True)
+    rows_t = build_abc(cls, free, adv2h, t_vis_h2,
+                       inv_dt + _F(2.0) * t_vis_h2, bc2d=True)
+    a, b, c = (torch.stack((rv, rv, rt)) for rv, rt in zip(rows_v, rows_t))
+    d_int = rhs3 * inv_dt
+    d_int[axis] = d_int[axis] - v_T * _dd(temp3[2], inv2h, axis)
+    d_int[2] = d_int[2] + forcing
+    interior = cls == INTERIOR
+    d = torch.where(interior, d_int,
+                    torch.where((cls == BC0) | (cls == BC1),
+                                torch.where(free, 0.0, temp3), 0.0))
+    x = tridiag_rows_ref(a, b, c, d, axis=axis + 1, exact=exact)
+    out = torch.where(interior, x, out_prev3)
+    tn = torch.where(interior, x if first else (temp3 + x) * 0.5, temp3)
+    return out, tn

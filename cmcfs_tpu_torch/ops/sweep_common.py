@@ -1,8 +1,9 @@
-"""Tridiagonal row build from the line-class and BC masks (3D forms).
+"""Tridiagonal row build from the line-class and BC masks.
 
 Port of ``cmcfs_tpu/ops/sweep_common.py``: ``build_abc``/``build_a`` with
-the 3D boundary rows and the packed-mask encoding.  The dual and 2D
-(``bc2d``) forms are not ported yet (ROADMAP A2).
+the 3D boundary rows and the 2D (``bc2d``) ones, and the packed-mask
+encoding.  The dual encodings are not ported (the port keeps pass B as
+its own class array, ``models/common3d.GridArrays3D.cls_b``).
 """
 from __future__ import annotations
 
@@ -29,30 +30,37 @@ def decode_pk(pk):
     return cls, bcv, bct
 
 
-def build_abc(cls, free, adv_2h, vis, b_int):
+def build_abc(cls, free, adv_2h, vis, b_int, bc2d: bool = False):
     """Row coefficients (a, b, c).
 
     Interior rows: a = -q/(2h) - nu/h^2, b = b_int, c = q/(2h) - nu/h^2
-    (BuildMatrix, AdiSolver3D.cpp:732-802).  Boundary rows: Dirichlet
-    identity, or the FREE linear-extrapolation (2, -1 | -1, 2) rows
-    (ApplyBC0/1, AdiSolver3D.cpp:804-852).  Identity rows elsewhere."""
+    (BuildMatrix, AdiSolver3D.cpp:732-802 / AdiSolver2D.cpp:118-178).
+    Boundary rows: Dirichlet identity, or the FREE forms: 3D linear
+    extrapolation (2, -1 | -1, 2) rows (ApplyBC0/1, AdiSolver3D.cpp:804-852),
+    2D difference rows x0 - x1 = 0 (1, -1 | +1, -1; ``bc2d``,
+    AdiSolver2D.cpp:74-116).  Identity rows elsewhere."""
     interior = cls == INTERIOR
     is_bc0 = cls == BC0
     is_bc1 = cls == BC1
     zero = torch.zeros((), dtype=adv_2h.dtype, device=adv_2h.device)
-    a = torch.where(interior, -adv_2h - vis,
-                    torch.where(is_bc1, torch.where(free, -1.0, 0.0), zero))
-    b = torch.where(interior, b_int,
-                    torch.where(is_bc0 | is_bc1,
-                                torch.where(free, 2.0, 1.0), 1.0 + zero))
+    a = build_a(cls, free, adv_2h, vis, bc2d)
+    if bc2d:
+        b = torch.where(interior, b_int,
+                        torch.where(is_bc1, torch.where(free, -1.0, 1.0),
+                                    1.0 + zero))
+    else:
+        b = torch.where(interior, b_int,
+                        torch.where(is_bc0 | is_bc1,
+                                    torch.where(free, 2.0, 1.0), 1.0 + zero))
     c = torch.where(interior, adv_2h - vis,
                     torch.where(is_bc0, torch.where(free, -1.0, 0.0), zero))
     return a, b, c
 
 
-def build_a(cls, free, adv_2h, vis):
+def build_a(cls, free, adv_2h, vis, bc2d: bool = False):
     """Just the sub-diagonal."""
     zero = torch.zeros((), dtype=adv_2h.dtype, device=adv_2h.device)
+    a_free = 1.0 if bc2d else -1.0
     return torch.where(cls == INTERIOR, -adv_2h - vis,
                        torch.where(cls == BC1,
-                                   torch.where(free, -1.0, 0.0), zero))
+                                   torch.where(free, a_free, 0.0), zero))

@@ -1,57 +1,36 @@
-"""Batched tridiagonal solve: plain Thomas in the reference operation order.
+"""Batched tridiagonal solve of the materialized-row path.
 
-Port of ``cmcfs_tpu/ops/tridiag.py::_solve_leading_axis_scan``
-(src/Common/Algorithms.h:21-38).  Solves a*x[i-1] + b*x[i] + c*x[i+1] = d
-along one axis for a full batch; the first row's ``a`` is ignored and the
-last row's ``c`` is taken as 0.  ``exact=True`` divides twice per row;
-``exact=False`` multiplies by one reciprocal per row (rows 1..n-1; row 0
-divides in both modes, as the reference does, unless ``recip_row0``: the
-fused line-sweep kernels' order, pallas_sweep_dma._solve_var, where row 0
-is the first step of the same recurrence).  The row loop runs in Python
-over whole batch slices, so each step is one vector operation.
+Port of ``cmcfs_tpu/ops/tridiag.py``'s ``tridiag_solve(..., backend=)``
+for backends ``scan`` and ``pallas``.  Both run the tridiag_rows kernel
+(``ops/tridiag_rows.py``) on CUDA tensors and its plain version on CPU
+tensors; they differ only in row 0 of the reciprocal form: ``scan``
+divides it (tridiag.py:35-36), ``pallas`` multiplies it by its reciprocal
+(pallas_tridiag.py:48-55), the ``recip_row0`` flag.  ``pcr`` is not
+ported.
 """
 from __future__ import annotations
 
 import torch
 
+from .tridiag_rows import tridiag_rows
 
-def _solve_leading_axis(a, b, c, d, exact: bool,
-                        recip_row0: bool = False) -> torch.Tensor:
-    """Thomas along axis 0; batch = trailing axes."""
-    n = d.shape[0]
-    cp = torch.empty_like(d)
-    dp = torch.empty_like(d)
-    c0 = c[0] if n > 1 else torch.zeros_like(c[0])    # c[-1] = 0
-    if recip_row0 and not exact:
-        r = torch.reciprocal(b[0])
-        cp[0] = c0 * r
-        dp[0] = d[0] * r
-    else:
-        cp[0] = c0 / b[0]
-        dp[0] = d[0] / b[0]
-    for i in range(1, n):
-        ci = c[i] if i < n - 1 else torch.zeros_like(c[i])
-        denom = b[i] - a[i] * cp[i - 1]
-        num = d[i] - dp[i - 1] * a[i]
-        if exact:
-            cp[i] = ci / denom
-            dp[i] = num / denom
-        else:
-            r = torch.reciprocal(denom)
-            cp[i] = ci * r
-            dp[i] = num * r
-    x = torch.empty_like(d)
-    x[n - 1] = dp[n - 1]
-    for i in range(n - 2, -1, -1):
-        x[i] = dp[i] - cp[i] * x[i + 1]
-    return x
+# backends of the materialized-row solve, and the ROADMAP item of those the
+# port does not have
+ROW_BACKENDS = ("scan", "pallas")
+_UNPORTED = {"pcr": "parallel cyclic reduction (ROADMAP B1 step 5)"}
 
 
 def tridiag_solve(a, b, c, d, axis: int = 0, exact: bool = True,
-                  recip_row0: bool = False) -> torch.Tensor:
-    """Solve the tridiagonal systems along ``axis`` (all inputs one shape)."""
-    if axis != 0:
-        a, b, c, d = (torch.movedim(t, axis, 0) for t in (a, b, c, d))
-        return torch.movedim(
-            _solve_leading_axis(a, b, c, d, exact, recip_row0), 0, axis)
-    return _solve_leading_axis(a, b, c, d, exact, recip_row0)
+                  backend: str = "scan") -> torch.Tensor:
+    """Solve along ``axis`` with backend ``scan`` or ``pallas``."""
+    if backend in _UNPORTED:
+        raise NotImplementedError(
+            f"tridiagonal backend {backend!r} is not ported: "
+            f"{_UNPORTED[backend]}")
+    if backend not in ROW_BACKENDS:
+        raise KeyError(f"unknown tridiagonal backend {backend!r}")
+    # the kernel addresses rows by stride in a contiguous array; the model
+    # paths hand it contiguous rows, so this copies only for other callers
+    a, b, c, d = (t.contiguous() for t in (a, b, c, d))
+    return tridiag_rows(a, b, c, d, axis=axis, exact=exact,
+                        recip_row0=backend == "pallas")

@@ -83,17 +83,30 @@ def main(argv=None) -> int:
         solver.time_step(dt, cfg.num_global, cfg.num_local,
                          compute_error=False)
 
+    return profile_steps(step, args.steps)
+
+
+# the port's own kernels (kernels/csrc/*.cu); every other device kernel is
+# PyTorch's (the RHS build, folds, merges and copies around them)
+PORT_KERNELS = ("pair_sweep_iter_kernel", "line_sweep_kernel",
+                "tridiag_rows_kernel")
+
+
+def profile_steps(step, steps: int) -> int:
+    """Run ``step`` once to warm up, then ``steps`` times under
+    ``torch.profiler``; print ms/step, the device time of each kernel and
+    the device's busy share.  Returns 1 if no device kernel was seen."""
     step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"{wall / args.steps * 1e3:.2f} ms/step over {args.steps} profiled "
+    print(f"{wall / steps * 1e3:.2f} ms/step over {steps} profiled "
           f"steps; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     kernels = _kernel_events(prof)
@@ -106,11 +119,15 @@ def main(argv=None) -> int:
         ent[0] += 1
         ent[1] += e - s
     total = sum(t for _, t in by_name.values())
+    # the profiler names them "(anonymous namespace)::<kernel>(<args>)"
+    ours = sum(t for name, (_, t) in by_name.items()
+               if any(k + "(" in name for k in PORT_KERNELS))
     span = (max(e.time_range.end for e in prof.events())
             - min(e.time_range.start for e in prof.events()))
     busy = _busy_us([(s, e) for _, s, e in kernels])
     print(f"device kernel time {total / 1e3:.2f} ms; busy {busy / 1e3:.2f} "
-          f"of {span / 1e3:.2f} ms profiled ({100 * busy / span:.1f} %)")
+          f"of {span / 1e3:.2f} ms profiled ({100 * busy / span:.1f} %); "
+          f"the port's kernels {100 * ours / total:.1f} % of kernel time")
     print(f"{'ms':>10}{'launches':>10}{'share':>8}  kernel")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"{t / 1e3:>10.3f}{n:>10}{100 * t / total:>7.1f}%  {name[:90]}")

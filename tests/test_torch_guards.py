@@ -43,7 +43,8 @@ def test_port_never_imports_jax():
 # their imports are relative; native.py differs only in where it builds
 HOST_COPIES = ["core/types.py", "core/config.py", "core/params.py",
                "core/scene2d.py", "core/scene3d.py", "geom/raster2d.py",
-               "geom/grid3d.py", "ops/masks.py", "io/netcdf3.py",
+               "geom/grid3d.py", "geom/synthetic.py", "ops/masks.py",
+               "io/netcdf3.py",
                "io/writers.py", "io/project.py", "utils/timer.py"]
 
 
@@ -107,7 +108,7 @@ def _box():
     return grid, grid_arrays(grid, "cpu")
 
 
-@pytest.mark.parametrize("case", ["scan", "pallas", "fused_pcr",
+@pytest.mark.parametrize("case", ["pcr", "fused_pcr", "fused_pcr_bf16",
                                   "fused_bf16"])
 def test_unported_dispatch_raises(case):
     """Backends whose kernels are not ported raise naming their ROADMAP

@@ -1,5 +1,6 @@
-"""The CUDA kernels (pair, stream and line sweeps) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels (pair, stream and line sweeps, in their 3D and 2D
+modes, and the tridiag_rows Thomas solve) against their plain PyTorch
+versions, on the card.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips otherwise.  This file imports no JAX, so it also runs on
@@ -15,15 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from cmcfs_tpu.geom.synthetic import lid_cavity_3d
 from cmcfs_tpu_torch.core.params import FluidParams
 from cmcfs_tpu_torch.core.types import BCtype, NodeType
-from cmcfs_tpu_torch.models import adi3d
+from cmcfs_tpu_torch.geom.synthetic import lid_cavity_2d, lid_cavity_3d
+from cmcfs_tpu_torch.models import adi2d, adi3d
+from cmcfs_tpu_torch.models import common2d
 from cmcfs_tpu_torch.models.common3d import (grid_arrays, init_state,
                                              merge_ok, update_boundaries)
 from cmcfs_tpu_torch.ops import line_sweep as ls
 from cmcfs_tpu_torch.ops import pair_sweep as ps
 from cmcfs_tpu_torch.ops import stream_sweep as ss
+from cmcfs_tpu_torch.ops import tridiag_rows as tr
+from cmcfs_tpu_torch.ops.sweep_common import pack_masks
 
 
 def _within(k4, p4):
@@ -170,6 +174,167 @@ def test_step_paths_on_gpu_match_cpu(backend, num_local, baffle):
         new, err = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 2, num_local,
                                          pa, backend=backend, exact=False,
                                          merge_ok=merge_ok(ga))
+        steps[dev] = (torch.stack(tuple(new)).cpu(), float(err))
+    (x_c, e_c), (x_g, e_g) = steps["cpu"], steps["cuda"]
+    assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
+    _within(x_g, x_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recip_row0", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", [((37, 300), 0), ((3, 41, 29), 1),
+                                         ((3, 29, 41), 2), ((19, 7, 5), 0)])
+def test_tridiag_rows_kernel_matches_plain(shape, axis, exact, recip_row0):
+    """Every axis of a contiguous array (rows by stride), odd lengths,
+    identity rows mixed in, both exact modes and both row-0 forms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(len(shape) + axis)
+    a = rng.uniform(-1, 1, shape)
+    c = rng.uniform(-1, 1, shape)
+    b = np.abs(a) + np.abs(c) + rng.uniform(1, 3, shape)
+    d = rng.standard_normal(shape)
+    ident = rng.random(shape) < 0.15
+    a[ident], c[ident], b[ident] = 0, 0, 1
+    rows = [torch.tensor(t, dtype=torch.float32, device="cuda")
+            for t in (a, b, c, d)]
+    before = tr.launches.count
+    x_k = tr.tridiag_rows(*rows, axis=axis, exact=exact,
+                          recip_row0=recip_row0)
+    assert tr.launches.count == before + 1
+    x_p = tr.tridiag_rows_ref(*rows, axis=axis, exact=exact,
+                              recip_row0=recip_row0)
+    torch.cuda.synchronize()
+    _within(x_k[None], x_p[None])
+
+
+def _segments(rng, shape, axis):
+    """Line classes made of whole segments along ``axis`` (BC0, interior
+    rows, BC1), identity cells between."""
+    n = shape[axis]
+    lines = np.zeros((int(np.prod(shape)) // n, n), dtype=np.int8)
+    for line in lines:
+        i = 0
+        while i < n:
+            seg = int(rng.integers(3, 12))
+            if rng.random() < 0.15 or i + seg > n:
+                i += 1
+                continue
+            line[i], line[i + 1:i + seg - 1], line[i + seg - 1] = 1, 3, 2
+            i += seg
+    rest = tuple(m for ax, m in enumerate(shape) if ax != axis)
+    return np.ascontiguousarray(np.moveaxis(lines.reshape(rest + (n,)), -1,
+                                            axis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", [((23, 19), 0), ((23, 19), 1),
+                                         ((300, 9), 0), ((9, 300), 1)])
+def test_line_sweep_2d_kernel_matches_plain(shape, axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(axis + 3 * exact)
+    # whole segments: random classes can make a 2D FREE system singular
+    cls = torch.tensor(_segments(rng, shape, axis), device="cuda")
+    bct = torch.tensor(rng.integers(0, 2, shape), dtype=torch.int8,
+                       device="cuda")
+    pk = pack_masks(cls, bct, bct)
+    adv = torch.tensor(0.2 * rng.standard_normal(shape), dtype=torch.float32,
+                       device="cuda")
+    d3 = torch.tensor(rng.standard_normal((3,) + shape), dtype=torch.float32,
+                      device="cuda")
+    scal = np.array([0.5, 0.7, 30.0, 5.0], dtype=np.float32)
+    before = ls.launches.count
+    x_k = ls.line_sweep_2d(adv, pk, d3, scal, axis, exact)
+    assert ls.launches.count == before + 1
+    x_p = ls.line_sweep_2d_ref(adv, pk, d3, scal, axis, exact)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x_p).all())
+    _within(x_k, x_p)
+
+
+def _case2d(device, seed):
+    grid = lid_cavity_2d(40, 36, dx=0.002)
+    grid.cur_bct[38, 2:-2] = BCtype.FREE
+    ga = common2d.grid_arrays(grid, device)
+    pa = adi2d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
+                           grid.dx, grid.dy, grid.start_T)
+    base = torch.stack(tuple(common2d.update_boundaries(
+        common2d.init_state(grid, device), ga)))
+    rng = np.random.default_rng(seed)
+    is_in = ga.types == NodeType.IN
+
+    def noisy():
+        n = torch.tensor(rng.standard_normal(tuple(base.shape)),
+                         dtype=torch.float32, device=device)
+        return torch.where(is_in, base + 0.01 * n, base)
+
+    return ga, pa, noisy(), noisy(), noisy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_stream_sweep_2d_kernel_matches_plain(axis, exact, first):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ga, pa, temp3, rhs3, op3 = _case2d("cuda", seed=axis)
+    assert adi2d.stream_ok_2d(ga) == (True, True)
+    rng = np.random.default_rng(7 + axis)
+    forcing = torch.tensor(0.1 * rng.standard_normal(tuple(ga.types.shape)),
+                           dtype=torch.float32, device="cuda")
+    scal = np.array([30.0, 20.0, 1000.0, 250.0, 1.0], dtype=np.float32)
+    args = (temp3, ga.cls_x if axis == 0 else ga.cls_y, ga.bct, rhs3, op3,
+            forcing, scal, axis, exact, first)
+    before = ss.launches.count
+    out_k, tn_k = ss.stream_sweep_2d(*args)
+    assert ss.launches.count == before + 1
+    out_p, tn_p = ss.stream_sweep_2d_ref(*args)
+    torch.cuda.synchronize()
+    _within(out_k, out_p)
+    _within(tn_k, tn_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend, num_local", [
+    ("fused_dma", 1), ("fused_full", 2), ("fused_nl", 1), ("scan", 2),
+    ("pallas", 1)])
+def test_step_2d_on_gpu_matches_cpu(backend, num_local):
+    """One whole 2D ADI step per backend on the card (kernels) against the
+    same step on the CPU (plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        ga, pa, temp3, _, _ = _case2d(dev, seed=4)
+        new, err, it = adi2d.adi_timestep_2d(
+            common2d.State2D(*temp3), ga, 0.001, 2, num_local, pa,
+            backend=backend, exact=False, stream_ok=adi2d.stream_ok_2d(ga))
+        steps[dev] = (torch.stack(tuple(new)).cpu(), float(err), it)
+    (x_c, e_c, i_c), (x_g, e_g, i_g) = steps["cpu"], steps["cuda"]
+    assert i_c == i_g
+    assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
+    _within(x_g, x_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["scan", "pallas"])
+def test_step_rows_3d_on_gpu_matches_cpu(backend):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        ga, pa, temp4, _, _ = _case(dev, seed=5, baffle=True)
+        cur = tuple(temp4)
+        before = tr.launches.count
+        new, err = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 1, pa,
+                                         backend=backend, exact=False,
+                                         merge_ok=merge_ok(ga))
+        # 4 variables x 3 directions, plus pass B on the dual X lines
+        assert tr.launches.count - before == (16 if dev == "cuda" else 0)
         steps[dev] = (torch.stack(tuple(new)).cpu(), float(err))
     (x_c, e_c), (x_g, e_g) = steps["cpu"], steps["cuda"]
     assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
