@@ -50,7 +50,12 @@ and nvcc.  Phases, each of which raises on failure:
    launches), each against the ``fused_dma`` step;
 14. the 3D row path: one step each of ``pallas`` and ``scan`` from the
    256^3 pair slice's state (96 tridiag_rows launches each), each
-   against the pair step.
+   against the pair step;
+15. the probes: ``cmcfs_tpu_torch.probes``' five measurement probes
+   (row cost, ILP, slab copy, the stream-kernel floors, in-kernel
+   dissipation) at their scripts' defaults, every variant's kernel
+   against its plain version (bit for bit but where a variant's tolerance
+   says otherwise), each probe's table printed.
 
 Every kernel's launch counter is set to 0 just before a path is driven
 and read just after; launches made to compare a kernel with its plain
@@ -145,6 +150,23 @@ KERNELS = {
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
         20, 8),
 }
+# the probes: (source, the TPU probe it replaces, the variant whose
+# numbers the record carries: each script's first); their bytes and
+# operations come from each variant's row (cmcfs_tpu_torch/probes)
+PROBE_KERNELS = {
+    "probe_rowcost": (CSRC + "probe_rowcost.cu",
+                      "scripts/probe_rowcost.py:47", "base"),
+    "probe_ilp": (CSRC + "probe_ilp.cu", "scripts/probe_ilp.py:50",
+                  "seq@65536"),
+    "probe_slabdma": (CSRC + "probe_slabdma.cu",
+                      "scripts/probe_slabdma.py:47", "strided@d4"),
+    "kernel_probe": (CSRC + "kernel_probe.cu", "scripts/kernel_probe.py:34",
+                     "dma"),
+    "probe_diss_bitwise": (CSRC + "probe_diss.cu",
+                           "scripts/probe_diss_bitwise.py:77",
+                           "rounded@256x256x256"),
+}
+PROBE_REPS = 3
 
 
 def fail(msg: str) -> None:
@@ -903,6 +925,40 @@ def main() -> int:
         note("tridiag_rows", e, [], [], 0)
         del new4
     rec["tridiag_rows"]["launches"] = rows_launches
+    del rows_args, rows_ref4
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 15. probes
+    phase("15. the probes at their scripts' defaults, every variant's "
+          f"kernel against its plain version ({PROBE_REPS} timed calls)")
+    from cmcfs_tpu_torch.probes import PROBES
+    from cmcfs_tpu_torch.probes import common as probe_common
+    probe_counters = Counters(**PROBES)
+    probe_counters.reset()
+    probe_rows = {}
+    for pname, mod in PROBES.items():
+        t0 = time.perf_counter()
+        rows = mod.run(mod.parse_args(["--reps", str(PROBE_REPS)]))
+        probe_common.print_table(pname, rows, dev)
+        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+        bad = [(r.variant, r.err, r.tol) for r in rows if not r.ok]
+        if bad:
+            fail(f"{pname}: kernel vs plain beyond its bound: {bad}")
+        probe_rows[pname] = rows
+    got = probe_counters.read()
+    print(f"probe launches: {got}")
+    for pname, (src, rep, head) in PROBE_KERNELS.items():
+        if got[pname] < 1:
+            fail(f"{pname}: no kernel launch counted")
+        rows = probe_rows[pname]
+        row = next(r for r in rows if r.variant == head)
+        worst = max(rows, key=lambda r: r.err)
+        rec[pname] = {
+            "name": pname, "route": "cuda", "source": src, "replaces": rep,
+            "launches": got[pname], "max_abs_err": row.err,
+            "ms": row.ms, "plain_ms": row.plain_ms, "bound_ms": row.bound_ms,
+            "bound_by": row.bound_by, "library_ms": row.library_ms,
+            "variant": head, "worst_variant": [worst.variant, worst.err]}
 
     # ------------------------------------------------------------ result
     phase("result")

@@ -1,6 +1,7 @@
 """The CUDA kernels (pair, stream and line sweeps, in their 3D and 2D
-modes, and the tridiag_rows Thomas solve) against their plain PyTorch
-versions, on the card.
+modes, the tridiag_rows Thomas solve, and the five measurement probes of
+cmcfs_tpu_torch/probes) against their plain PyTorch versions, on the
+card.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips otherwise.  This file imports no JAX, so it also runs on
@@ -11,6 +12,9 @@ a machine that has only PyTorch:
 Bound per variable 1e-5 * max(1, max|plain|), as chip_smoke.py's: nvcc
 contracts mul-adds into FMAs where eager PyTorch rounds every op; the
 diagonally dominant Thomas rows do not amplify ulp-level differences.
+The probes round as their plain versions do and are held to them bit for
+bit, but for the variants that measure contraction (1e-6 relative) and
+cyclic reduction against Thomas (1e-5).
 """
 import numpy as np
 import pytest
@@ -28,6 +32,11 @@ from cmcfs_tpu_torch.ops import pair_sweep as ps
 from cmcfs_tpu_torch.ops import stream_sweep as ss
 from cmcfs_tpu_torch.ops import tridiag_rows as tr
 from cmcfs_tpu_torch.ops.sweep_common import pack_masks
+from cmcfs_tpu_torch.probes import kernel_probe as kp
+from cmcfs_tpu_torch.probes import probe_diss_bitwise as pdb
+from cmcfs_tpu_torch.probes import probe_ilp as pil
+from cmcfs_tpu_torch.probes import probe_rowcost as prc
+from cmcfs_tpu_torch.probes import probe_slabdma as psd
 
 
 def _within(k4, p4):
@@ -339,3 +348,114 @@ def test_step_rows_3d_on_gpu_matches_cpu(backend):
     (x_c, e_c), (x_g, e_g) = steps["cpu"], steps["cuda"]
     assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
     _within(x_g, x_c)
+
+
+def _cuda_gen(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _counted(mod, fn):
+    """fn()'s result, checking that it launched the module's kernel once."""
+    before = mod.launches.count
+    out = fn()
+    assert mod.launches.count == before + 1
+    return out
+
+
+def _max_err(got, want):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    return float((got - want).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(prc.VARIANTS))
+def test_probe_rowcost_matches_plain(variant):
+    gen = _cuda_gen(11)
+    n, nb = 32, 3
+    sub, lanes = prc.VARIANTS[variant][:2]
+    a, r, d = prc.inputs((n * nb, sub, lanes), gen, torch.device("cuda"))
+    if variant == "strided":
+        a, r, d = (prc.chain_major(x, n) for x in (a, r, d))
+    got = _counted(prc, lambda: prc.chain(a, r, d, n, variant))
+    want = prc.chain_ref(a, r, d, n, variant)
+    tol = 1e-6 * float(want.abs().max()) if variant == "base_fma" else 0.0
+    assert _max_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("ilp", [False, True])
+def test_probe_ilp_matches_plain(ilp, k):
+    gen = _cuda_gen(12)
+    dev = torch.device("cuda")
+    n, nb = 32, 2
+    a = prc.common.uniform((n * nb, 8, 128), 0.1, 0.2, gen, dev)
+    r = prc.common.uniform((n * nb, 8, 128), 0.9, 1.1, gen, dev)
+    d = prc.common.uniform((k, n * nb, 8, 128), 0.0, 1.0, gen, dev)
+    got = _counted(pil, lambda: pil.chains(a, r, d, n, ilp))
+    assert _max_err(got, pil.chains_ref(a, r, d, n, ilp)) == 0.0
+    assert _max_err(got, pil.chains_ref(a, r, d, n, not ilp)) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", psd.DEPTHS)
+@pytest.mark.parametrize("mode", list(psd.MODES))
+@pytest.mark.parametrize("n", [128, 256])
+def test_probe_slabdma_matches_plain(n, mode, depth):
+    gen = _cuda_gen(13)
+    dense = torch.rand((n, n, n), generator=gen, device="cuda")
+    x = psd.blocked_of(dense) if mode == "blocked" else dense
+    got = _counted(psd, lambda: psd.slab_copy(x, mode, depth))
+    assert got.shape == (n, 8, 128)
+    assert _max_err(got, psd.slab_copy_ref(x, mode)) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (3, 50, 64)])
+def test_probe_lines_match_plain(shape, tiled):
+    """Whole and ragged last blocks of 128 lines."""
+    gen = _cuda_gen(14)
+    x = torch.rand(shape, generator=gen, device="cuda")
+    got = _counted(psd, lambda: psd.line_sums(x, tiled))
+    assert _max_err(got, psd.line_sums_ref(x)) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(kp.MODES))
+def test_kernel_probe_matches_plain(mode):
+    gen = _cuda_gen(15)
+    n = 64
+    temp4, rhs4, forc = kp.inputs(n, gen, torch.device("cuda"))
+    got = _counted(kp, lambda: kp.probe(temp4, rhs4, forc, mode))
+    want = kp.probe_ref(temp4, rhs4, forc, mode)
+    if mode in ("dma", "full"):
+        for g, w in zip(got, want):
+            assert _max_err(g, w) == 0.0
+        return
+    thomas = kp.probe_ref(temp4, rhs4, forc, "comp")
+    if mode == "pcr":
+        assert _max_err(got, thomas) <= 1e-5 * max(
+            1.0, float(thomas.abs().max()))
+    else:
+        assert _max_err(got, want) == 0.0
+        assert _max_err(got, thomas) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounded", [True, False],
+                         ids=["rounded", "contracted"])
+@pytest.mark.parametrize("shape", [(16, 8, 128), (33, 17, 40), (1, 5, 7)])
+def test_probe_diss_matches_plain(shape, rounded):
+    gen = _cuda_gen(16)
+    dev = torch.device("cuda")
+    u, v, w = (pdb.common.uniform(shape, -1.0, 1.0, gen, dev)
+               for _ in range(3))
+    scal = pdb.inv2h()
+    got = _counted(pdb, lambda: pdb.diss(u, v, w, scal, rounded))
+    want = pdb.diss_ref(u, v, w, scal)
+    tol = 0.0 if rounded else 1e-6 * max(1.0, float(want.abs().max()))
+    assert _max_err(got, want) <= tol
