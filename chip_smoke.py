@@ -11,7 +11,8 @@ and nvcc.  Phases, each of which raises on failure:
    process per source;
 3. pair kernel vs plain: the pair-sweep kernel against its plain PyTorch
    version on the 256^3 bench box, X / Y / Z, both ``exact`` modes,
-   gmerge on X, with CUDA-event times of both;
+   gmerge on X, with CUDA-event times of both and the GB/s that the
+   source's count of the bytes the kernel moves (``MOVED``) gives;
 4. stream kernel vs plain on the same inputs, X / Y / Z, both modes;
 5. pair slice: ``cmcfs_tpu_torch.cli3d.run_case`` on the 256^3 box at
    num_global=4, num_local=2 with NetCDF output; dispatch (all ``pair``),
@@ -150,6 +151,12 @@ KERNELS = {
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
         20, 8),
 }
+# bytes a cell a call that pair_sweep.cu's design moves by its source
+# note's count (148 a launch in the 3D pair mode, two launches a pair; 152
+# in the 3D stream mode; 120 in 2D; the cross-line neighbour reads, mostly
+# cache hits, left out), printed beside the compulsory bytes above with the
+# GB/s they give at the measured time: an estimate, not a measured rate
+MOVED = {"pair_sweep": 2 * 148, "stream_sweep": 152, "stream_sweep_2d": 120}
 # the probes: (source, the TPU probe it replaces, the variant whose
 # numbers the record carries: each script's first); their bytes and
 # operations come from each variant's row (cmcfs_tpu_torch/probes)
@@ -316,6 +323,11 @@ def main() -> int:
             t_ops = cells * nflop / F32_FLOP_S * 1e3
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            if kernel in MOVED:
+                print(f"{kernel}: moves about {MOVED[kernel]} B a cell a "
+                      f"call by the source's count (compulsory {nbytes}): "
+                      f"about {cells * MOVED[kernel] / r['ms'] / 1e6:.1f} "
+                      f"GB/s at the measured {r['ms']:.3f} ms ({smi})")
 
     work = tempfile.mkdtemp(prefix="cmcfs_smoke_")
     data, cfgp = gen(os.path.join(work, "b256"), dx=BOX_DX, time_steps=4,

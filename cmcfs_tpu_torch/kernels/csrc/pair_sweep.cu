@@ -13,8 +13,8 @@
 //   and writes UpdateSegment + the NODE_IN merge (+ the folded global
 //   MergeLayer when gmerge is set).  Every product is rounded before it is
 //   added (__fmul_rn / __fadd_rn / __fsub_rn: no contraction into FMAs), in
-//   the plain PyTorch version's order of operations, so the kernel rounds
-//   as that version does; the 2D solver's v_T dt/(2h) (115 at the 2D
+//   the plain PyTorch version's order of operations, so the kernel equals
+//   that version bit for bit; the 2D solver's v_T dt/(2h) (115 at the 2D
 //   bench's parameters) would otherwise turn one ulp of T into 115 of v.
 // Also replaces: cmcfs_tpu/ops/pallas_sweep_stream.py::fused_sweep_stream,
 //   one local iteration whose T forcing t_phi*diss is computed by the caller
@@ -26,26 +26,61 @@
 //   3D view (1, nx, ny) on axis 1 (X) or 2 (Y); ``axis_var`` names the
 //   velocity that advects.
 //
-// What bounds it on this card: memory traffic and latency.  Per iteration a
-//   line's thread streams ~12 field reads (adv, rhs x4, temp x4, out_prev x4,
-//   masks, the T-line and the +-1 neighbour lines of adv) and 8 field
-//   writes (out x4, tn x4), plus the c'/r/d' scratch round trip.  It does a
-//   few flops per byte, far below the card's compute-to-bandwidth ratio.
-//   Parallelism is one thread per grid line (65,536 lines at 256^3), so
-//   the card holds about a quarter of its resident-thread capacity and
-//   relies on independent lines to hide load latency.
+// What bounds it on this card: device-memory traffic, and the latency of
+//   each line's serial walk where too few lines share an SM.  A launch must
+//   read temp, rhs and out_prev of every variable and the masks and write
+//   out and tn (83 B a cell in 3D).  Thomas adds its scratch, written on the
+//   way forward and read on the way back, and the backward pass reads temp,
+//   out_prev and the classes: 148 B a cell moved in the 3D pair mode, 152 in
+//   the 3D stream mode, 120 in 2D, by this count; the pair mode's four
+//   planes of cross-line neighbours (16 B a cell, read at each forward row,
+//   mostly from cache) are not in it.  The arithmetic is a few operations a
+//   byte, far below the card's ratio, but a warp's walk of one row takes
+//   hundreds of dependent instructions, so a launch needs many lines on
+//   each SM and several rows of loads in flight for each.
 //
-// What the design does about it: threadIdx.x runs along the contiguous
-//   cross dimension, so the X and Y sweeps read and write whole coalesced
-//   rows; the scratch arrays are laid out [row][line] so their accesses are
-//   coalesced on every axis.  The Z sweep, whose line is the contiguous
-//   axis, reads strided (one cache sector per thread per row) and relies on
-//   L1 reuse across consecutive rows.  Outputs go to buffers distinct from
-//   temp: neighbouring lines read temp[axis] while this one writes tn.
-//   Lines at the grid edge clamp their +-1 cross-line reads to themselves;
-//   those values only feed cells that are never NODE_IN.
-//   Not done yet: one fused launch per pair with halo lines recomputed in
-//   shared-memory tiles, a coalesced Z sweep, and TMA staging.
+// What the design does about it:
+// * One forward and one backward walk of a line a launch, for all
+//   variables.  At each row the forward walk advances six chains at once
+//   (c' of the velocity rows, c' of T's rows, d' of each variable; five in
+//   2D); the reciprocal (or, exact, the denominator) is used in the same
+//   step and never stored.  The scratch holds c'_vel, c'_T and each d',
+//   laid out [plane][row][line] so every access to it is coalesced, each
+//   value written once and read once.  The backward walk reads it with the
+//   classes, temp and out_prev, and writes out and tn.
+// * Rows fetched ahead of the chain.  A block of L consecutive lines walks
+//   them in chunks of R rows through S chunk buffers in shared memory:
+//   while the block computes chunk k, cp.async fills the others with chunks
+//   k+1 .. k+S-1, so no load waits on the chain.  The forward walk runs one
+//   row behind its loads, so a row's +-1 neighbours along the line come
+//   from registers.  Each thread's copies of a chunk lie at offsets linear
+//   in the copy's index, and whole chunks skip the edge tests.
+// * A coalesced Z sweep.  On X and Y the threads run along the contiguous
+//   cross axis: a chunk row of the block's lines is one coalesced run.  On
+//   Z (and the 2D Y sweep, the contiguous axis of the view) the line is the
+//   contiguous axis: thread t copies row t % R of lines t / R + j L / R, so
+//   a chunk is L runs of R contiguous floats, into a [row][line] tile padded
+//   against bank conflicts; each thread then walks its own line, writes out
+//   and tn of a row into the tile slots of that row's d' and temp once it
+//   has read them, and the block stores the tile back as the same runs.
+//   The int8 masks are copied as the aligned 4-byte words that cover each
+//   contiguous run (a word that holds a byte of the tensor never crosses a
+//   page) and read at the run's byte offset.
+// * Tiles (L x R x S, the constants kXy*, kZ*, k2d*), chosen from H100
+//   timings of the alternatives (PERF.md, Findings): 3D X/Y
+//   64 x 2 x 2 (15 KB a block, so all 65,536 lines of a 256^3 sweep are
+//   resident at once); 3D Z 64 x 8 x 3 (32-byte runs; shorter runs cost
+//   more than the occupancy they buy); 2D 32 x 8 x 3 (1,024 lines at
+//   1024^2: 32 SMs, a warp each, latency-bound).
+//
+// Why a pair stays two launches: iteration 2 reads tn1 of the velocities on
+//   the neighbouring lines (the dissipation's cross derivatives), and a
+//   256-row line's out1 and tn1 take 8 KB, so no tile of lines keeps them on
+//   chip: a single-launch pair would save one launch of a few microseconds
+//   and no bytes.  Outputs go to buffers distinct from temp, as neighbouring
+//   lines read temp while this one writes tn.  Lines at the grid edge clamp
+//   their +-1 cross-line reads to themselves; those values only feed cells
+//   that are never NODE_IN.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -55,7 +90,11 @@
 namespace {
 
 constexpr int kFree = 1;      // core/types.py BCtype.FREE
-constexpr int kThreads = 128;
+
+// Tiles: L lines a block, R rows a chunk, S chunk buffers
+constexpr int kXyL = 64, kXyR = 2, kXyS = 2;    // 3D X and Y sweeps
+constexpr int kZL = 64, kZR = 8, kZS = 3;       // 3D Z sweep
+constexpr int k2dL = 32, k2dR = 8, k2dS = 3;    // 2D sweeps (X and Y)
 
 struct Mode {
   int nvars;     // 4 (u, v, w, T) or 3 (2D: u, v, T, the 2D FREE rows and
@@ -69,7 +108,160 @@ struct Scal {                 // models/adi3d._nl_scal, float32
   float v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, t_phi, inv2h_1, inv2h_2;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// The lines of one launch: line (i1, i2) starts at i1*s1 + i2*s2, its rows
+// p = 0..n-1 lie sp apart; variables lie fs apart.  Strides within a tile
+// (R rows, L lines) fit in 32 bits.
+struct Geo {
+  int n, n1, n2, axis;
+  long long sp, s1, s2, fs;
+};
+
+// cp.async of 4 bytes to the shared-window byte address ``sa``.
+__device__ __forceinline__ void cp_async4(unsigned sa, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory layout of one block (in 4-byte words).  A plane is R rows
+// of kS floats, row r of line l at r * kS + l.  On Z, kS pads L so that
+// the rows-fast copies (R rows of 32 / R lines a warp) hit distinct banks.
+// A mask plane holds kSegs contiguous byte runs (rows on X/Y, lines on Z)
+// of kW words each.  Forward buffer: temp and rhs of every variable, the
+// forcing (stream) or the 4 cross neighbours of adv (pair), 3 masks.
+// Backward buffer: the scratch planes, temp, out_prev, the classes; on Z,
+// out and tn of a row go back into the slots of its d' and temp once read.
+// The two walks reuse the same memory.
+template <int NV, bool kForce, bool kZ, int L, int R, int S>
+struct Tile {
+  static_assert(L % 4 == 0 && (!kZ || R % 4 == 0),
+                "mask runs are copied as whole words");
+  static constexpr int kS = kZ ? L + (R >= 32 ? 1 : 32 / R) : L;
+  static constexpr int kPlane = R * kS;
+  static constexpr int kSegs = kZ ? L : R;
+  static constexpr int kW = (kZ ? R : L) / 4 + 1;
+  static constexpr int kMask = kSegs * kW;
+  static constexpr int kNs = NV + 2;                 // scratch planes
+  static constexpr int kNx = kForce ? 1 : 4;         // forcing | neighbours
+  static constexpr int kFwdPlanes = 2 * NV + kNx;
+  static constexpr int kFwd = kFwdPlanes * kPlane + 3 * kMask;
+  static constexpr int kBwdPlanes = kNs + 2 * NV;
+  static constexpr int kBwd = kBwdPlanes * kPlane + kMask;
+  static constexpr int kWords = S * (kFwd > kBwd ? kFwd : kBwd);
+};
+
+// A thread's share of a chunk's copy: the R elements it copies of each
+// plane.  Lines fast: element j is row j of line l0 = t (one coalesced run
+// a row when lines are contiguous).  Rows fast: element j is row r0 = t % R
+// of line l0 + j L / R, l0 = t / R (runs of R floats along contiguous
+// lines).  Element j lies g0 + j gs elements past the chunk's first cell
+// (rows rs, lines ls apart) and s0 + 4 j kStep bytes into the plane.
+template <bool kLinesFast, int L, int R, int kS>
+struct Lane {
+  static_assert(kLinesFast || L % R == 0, "rows-fast tiles need R | L");
+  static constexpr int kStep = kLinesFast ? kS : L / R;
+  int r0, l0, g0, gs;
+  unsigned s0;
+  __device__ Lane(int t, int rs, int ls)
+      : r0(kLinesFast ? 0 : t % R), l0(kLinesFast ? t : t / R),
+        g0(r0 * rs + l0 * ls), gs(kLinesFast ? rs : (L / R) * ls),
+        s0(4u * (r0 * kS + l0)) {}
+  __device__ int row(int j) const { return kLinesFast ? j : r0; }
+  __device__ int line(int j) const {
+    return kLinesFast ? l0 : l0 + j * (L / R);
+  }
+  // Copy the chunk of a plane whose first cell is src into the shared
+  // plane at sa; ``full`` when every element lies inside the grid, else
+  // rows [0, rows_v) of lines [0, lines_v); dl(l) shifts line l's reads.
+  template <class Dl>
+  __device__ __forceinline__ void copy(unsigned sa, const float* src,
+                                       bool full, int rows_v, int lines_v,
+                                       Dl dl) const {
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        cp_async4(sa + s0 + 4u * (j * kStep),
+                  src + (g0 + j * gs + dl(line(j))));
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (row(j) < rows_v && line(j) < lines_v)
+          cp_async4(sa + s0 + 4u * (j * kStep),
+                    src + (g0 + j * gs + dl(line(j))));
+    }
+  }
+};
+
+struct NoShift {
+  __device__ int operator()(int) const { return 0; }
+};
+
+// Copy the aligned words that cover each contiguous byte run of a mask
+// chunk into the shared plane at sa, kW words a run (a word that holds a
+// byte of the tensor never crosses a page).  X/Y: run r is row r, lines_v
+// bytes from first + r sp, its word t copied by thread t.  Z: run l is
+// line l, rows_v bytes from first + l s2, all its words by thread l.
+template <bool kZ, int R, int kW>
+__device__ __forceinline__ void copy_mask(unsigned sa, int t, int rows_v,
+                                          int lines_v, const int8_t* first,
+                                          int sp, int s2) {
+  if constexpr (kZ) {
+    if (t >= lines_v) return;
+    const uintptr_t a = (uintptr_t)(first + t * s2);
+    const int nw = ((int)(a & 3) + rows_v + 3) >> 2;
+#pragma unroll
+    for (int w = 0; w < kW; ++w)
+      if (w < nw)
+        cp_async4(sa + 4u * (t * kW + w),
+                  (const void*)((a & ~(uintptr_t)3) + 4 * w));
+  } else {
+    if (t >= kW) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uintptr_t a = (uintptr_t)(first + (long long)r * sp);
+      if (r < rows_v && t < (((int)(a & 3) + lines_v + 3) >> 2))
+        cp_async4(sa + 4u * (r * kW + t),
+                  (const void*)((a & ~(uintptr_t)3) + 4 * t));
+    }
+  }
+}
+
+// Byte idx of run seg, whose first byte lies ``off`` (0..3) into its word.
+template <int kW>
+__device__ __forceinline__ int mask_at(const unsigned* pl, int seg, int idx,
+                                       int off) {
+  return reinterpret_cast<const int8_t*>(pl + seg * kW)[off + idx];
+}
+
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int i) {
+  float x = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) x = i == k ? a[k] : x;
+  return x;
+}
+
+// One row of a line, as the forward walk reads it from the tile.
+template <int NV, bool kForce>
+struct Row {
+  float t[NV];                 // temp
+  float rh[NV];                // rhs
+  float ex[kForce ? 1 : 4];    // forcing, or adv at o-s1, o+s1, o-s2, o+s2
+  int cl;
+  bool fv, ft;                 // bcv, bct == FREE
+};
+
+template <int NV, bool kForce, bool kZ, bool kExact, int L, int R, int S>
+__global__ void __launch_bounds__(L, 1)
 pair_sweep_iter_kernel(const float* __restrict__ temp,
                        const int8_t* __restrict__ cls,
                        const int8_t* __restrict__ bcv,
@@ -78,172 +270,421 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
                        const float* __restrict__ op,
                        const float* __restrict__ forcing,
                        float* __restrict__ out, float* __restrict__ tn,
-                       float* __restrict__ scratch, int n, long long sp,
-                       int n1, long long s1, int n2, long long s2,
-                       long long fs, int axis, Mode m, Scal s) {
-  const int i2 = blockIdx.x * blockDim.x + threadIdx.x;
+                       float* __restrict__ scratch, Geo g, Mode m, Scal s) {
+  using Tl = Tile<NV, kForce, kZ, L, R, S>;
+  constexpr int kS = Tl::kS, kPlane = Tl::kPlane, kW = Tl::kW;
+  constexpr int tv = NV - 1;                    // T
+  constexpr bool two_d = NV == 3;
+  extern __shared__ float smem[];
+  const int t = threadIdx.x;
   const int i1 = blockIdx.y;
-  if (i2 >= n2) return;
-  const long long lines = (long long)n1 * n2;
-  const long long line = (long long)i1 * n2 + i2;
-  const long long base = i1 * s1 + i2 * s2;
-  float* cp = scratch + line;                  // c' of row p at cp[p*lines]
-  float* rr = scratch + n * lines + line;      // denominator or reciprocal
-  float* dp = scratch + 2 * n * lines + line;  // d'
-  const int tv = m.nvars - 1;                   // T
-  const bool two_d = is_2d(m.nvars);
-  const float* adv = temp + m.axis_var * fs;
-  const float* tT = temp + tv * fs;
-  // the two other velocities (o1 < o2), whose axes are the cross dims
-  const float* t1 = temp + (axis == 0 ? 1 : 0) * fs;
-  const float* t2 = temp + (axis == 2 ? 1 : 2) * fs;
-  const long long m1 = i1 > 0 ? -s1 : 0, p1 = i1 < n1 - 1 ? s1 : 0;
-  const long long m2 = i2 > 0 ? -s2 : 0, p2 = i2 < n2 - 1 ? s2 : 0;
+  const int i20 = blockIdx.x * L;
+  const int n = g.n;
+  const int lines_v = min(L, g.n2 - i20);
+  const bool valid = t < lines_v;
+  const long long lines = (long long)g.n1 * g.n2;
+  const long long line0 = (long long)i1 * g.n2 + i20;   // scratch column
+  const long long base0 = i1 * g.s1 + i20 * g.s2;        // line 0's cell 0
+  const long long sps = (long long)n * lines;           // scratch plane
+  const int sp = (int)g.sp, s2 = (int)g.s2, lines32 = (int)lines;
+  const int nch = (n + R - 1) / R;
+  // byte runs of a mask chunk: rows (X/Y) or lines (Z), and where the
+  // first byte of each lies in its word
+  const int rstride = kZ ? s2 : sp;
+  const int8_t* const mk[3] = {cls + base0, bcv + base0, bct + base0};
+  int moff[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) moff[i] = (int)((uintptr_t)mk[i] & 3);
+  auto run_off = [&](int i, int p0, int seg) {   // mod 4: unsigned wraps
+    const unsigned row0 = (unsigned)p0 * (kZ ? 1u : (unsigned)sp);
+    return (int)((moff[i] + row0 + (unsigned)seg * (unsigned)rstride) & 3u);
+  };
 
-  // g = 0: the velocity chain (u, v, w share rows); g = 1: T's rows
-  for (int g = 0; g < 2; ++g) {
-    const float vis = g ? s.t_vis_h2 : s.v_vis_h2;
-    const int8_t* fr = g ? bct : bcv;
-    const float b_int = s.inv3dt + 2.0f * vis;
+  // ---- the copies: field planes in the tile's mapping, scratch planes
+  // lines fast; shared addresses as bytes of the shared window
+  const Lane<!kZ, L, R, kS> fld(t, sp, s2);
+  const Lane<true, L, R, kS> scl(t, lines32, 1);
+  const unsigned sb = (unsigned)__cvta_generic_to_shared(smem);
+  auto chunk_rows = [&](int k) { return min(R, n - k * R); };
+  auto is_full = [&](int k) { return chunk_rows(k) == R && lines_v == L; };
 
-    float c_prev = 0.f;
-    for (int p = 0; p < n; ++p) {
-      const long long o = base + p * sp;
-      float a, b, c;
-      build_abc(cls[o], fr[o] == kFree, two_d, __fmul_rn(adv[o], s.inv2h),
-                vis, b_int, a, b, c);
-      if (p == n - 1) c = 0.f;
-      float cn, r;
-      if (p == 0) {
-        cn = c / b;
-        r = b;
+  // ---- forward buffers: chunk k in buffer k % S
+  auto fetch_fwd = [&](int k) {
+    const unsigned st = sb + 4u * ((k % S) * Tl::kFwd);
+    auto plane = [&](int i) { return st + 4u * (i * kPlane); };
+    const int p0 = k * R, rows_v = chunk_rows(k);
+    const bool full = is_full(k);
+    const long long o0 = base0 + (long long)p0 * g.sp;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      fld.copy(plane(v), temp + v * g.fs + o0, full, rows_v, lines_v,
+               NoShift());
+      fld.copy(plane(NV + v), rhs + v * g.fs + o0, full, rows_v, lines_v,
+               NoShift());
+    }
+    if constexpr (kForce) {
+      fld.copy(plane(2 * NV), forcing + o0, full, rows_v, lines_v,
+               NoShift());
+    } else {
+      const float* adv = temp + m.axis_var * g.fs + o0;
+      const int n2 = g.n2;
+      fld.copy(plane(2 * NV), adv + (i1 > 0 ? -g.s1 : 0), full, rows_v,
+               lines_v, NoShift());
+      fld.copy(plane(2 * NV + 1), adv + (i1 < g.n1 - 1 ? g.s1 : 0), full,
+               rows_v, lines_v, NoShift());
+      fld.copy(plane(2 * NV + 2), adv, full, rows_v, lines_v,
+               [=](int l) { return i20 + l > 0 ? -s2 : 0; });
+      fld.copy(plane(2 * NV + 3), adv, full, rows_v, lines_v,
+               [=](int l) { return i20 + l < n2 - 1 ? s2 : 0; });
+    }
+    const long long mo = kZ ? p0 : (long long)p0 * g.sp;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      copy_mask<kZ, R, kW>(plane(Tl::kFwdPlanes) + 4u * (i * Tl::kMask), t,
+                           rows_v, lines_v, mk[i] + mo, sp, s2);
+  };
+
+  auto read_fwd = [&](int k, int r, Row<NV, kForce>& w) {
+    const float* st = smem + (k % S) * Tl::kFwd;
+    const int i = r * kS + t;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      w.t[v] = st[v * kPlane + i];
+      w.rh[v] = st[(NV + v) * kPlane + i];
+    }
+#pragma unroll
+    for (int j = 0; j < Tl::kNx; ++j) w.ex[j] = st[(2 * NV + j) * kPlane + i];
+    const unsigned* mw =
+        reinterpret_cast<const unsigned*>(st + Tl::kFwdPlanes * kPlane);
+    const int p0 = k * R, seg = kZ ? t : r, idx = kZ ? r : t;
+    w.cl = mask_at<kW>(mw, seg, idx, run_off(0, p0, seg));
+    w.fv = mask_at<kW>(mw + Tl::kMask, seg, idx, run_off(1, p0, seg)) ==
+           kFree;
+    w.ft = mask_at<kW>(mw + 2 * Tl::kMask, seg, idx, run_off(2, p0, seg)) ==
+           kFree;
+  };
+
+  // ---- forward walk: the six (five) chains of row p, whose neighbours
+  // along the line are pv and nx (p itself at the line's ends)
+  const float b_int_v = s.inv3dt + 2.0f * s.v_vis_h2;
+  const float b_int_t = s.inv3dt + 2.0f * s.t_vis_h2;
+  float cpv = 0.f, cpt = 0.f, dp[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) dp[v] = 0.f;
+  float* const sc0 = scratch + line0 + t;
+
+  auto fwd_step = [&](int p, const Row<NV, kForce>& pv,
+                      const Row<NV, kForce>& cu, const Row<NV, kForce>& nx) {
+    const float adv2h = __fmul_rn(pick(cu.t, m.axis_var), s.inv2h);
+    float av, bv, cv, at, bt, ct;
+    build_abc(cu.cl, cu.fv, two_d, adv2h, s.v_vis_h2, b_int_v, av, bv, cv);
+    build_abc(cu.cl, cu.ft, two_d, adv2h, s.t_vis_h2, b_int_t, at, bt, ct);
+    if (p == n - 1) cv = ct = 0.f;
+    float qv, qt;  // d' multiplies by them (reciprocal) or divides (exact)
+    if (p == 0) {
+      cpv = cv / bv;
+      qv = bv;
+      cpt = ct / bt;
+      qt = bt;
+    } else {
+      const float dv = __fsub_rn(bv, __fmul_rn(av, cpv));
+      const float dt = __fsub_rn(bt, __fmul_rn(at, cpt));
+      if constexpr (kExact) {
+        cpv = cv / dv;
+        qv = dv;
+        cpt = ct / dt;
+        qt = dt;
       } else {
-        const float denom = __fsub_rn(b, __fmul_rn(a, c_prev));
-        if (m.exact) {
-          cn = c / denom;
-          r = denom;
-        } else {
-          r = 1.0f / denom;
-          cn = c * r;
-        }
+        qv = 1.0f / dv;
+        cpv = cv * qv;
+        qt = 1.0f / dt;
+        cpt = ct * qt;
       }
-      cp[p * lines] = cn;
-      rr[p * lines] = r;
-      c_prev = cn;
     }
+    // T's forcing: the caller's, or t_phi * diss_axis(temp)
+    float fT;
+    if constexpr (kForce) {
+      fT = cu.ex[0];
+    } else {
+      const int o1 = g.axis == 0 ? 1 : 0, o2 = g.axis == 2 ? 1 : 2;
+      const float gav = __fmul_rn(
+          pick(nx.t, m.axis_var) - pick(pv.t, m.axis_var), s.inv2h);
+      const float go1 = __fmul_rn(pick(nx.t, o1) - pick(pv.t, o1), s.inv2h);
+      const float go2 = __fmul_rn(pick(nx.t, o2) - pick(pv.t, o2), s.inv2h);
+      const float h1 = __fmul_rn(cu.ex[1] - cu.ex[0], s.inv2h_1);
+      const float h2 = __fmul_rn(cu.ex[3] - cu.ex[2], s.inv2h_2);
+      const float sav = __fmul_rn(2.f * gav, gav);
+      const float q1 = __fmul_rn(go1, go1), q2 = __fmul_rn(go2, go2);
+      // the term order of ops/pair_sweep._forcing
+      float diss = g.axis == 0   ? __fadd_rn(__fadd_rn(sav, q1), q2)
+                   : g.axis == 1 ? __fadd_rn(__fadd_rn(q1, sav), q2)
+                                 : __fadd_rn(__fadd_rn(q1, q2), sav);
+      diss = __fadd_rn(__fadd_rn(diss, __fmul_rn(go1, h1)),
+                       __fmul_rn(go2, h2));
+      fT = __fmul_rn(s.t_phi, diss);
+    }
+    const float gT = __fmul_rn(nx.t[tv] - pv.t[tv], s.inv2h);
+    float* sc = sc0 + (long long)p * lines;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const bool is_t = v == tv;
+      float d = 0.f;
+      if (cu.cl == kInterior) {
+        d = __fmul_rn(cu.rh[v], s.inv3dt);
+        if (v == m.axis_var)
+          d = __fsub_rn(d, __fmul_rn(s.v_T, gT));
+        else if (is_t)
+          d = __fadd_rn(d, fT);
+      } else if (cu.cl == kBC0 || cu.cl == kBC1) {
+        d = (is_t ? cu.ft : cu.fv) ? 0.f : cu.t[v];
+      }
+      const float q = is_t ? qt : qv;
+      float dn;
+      if (p == 0) {
+        dn = d / q;
+      } else {
+        const float num = __fsub_rn(d, __fmul_rn(dp[v], is_t ? at : av));
+        if constexpr (kExact)
+          dn = num / q;
+        else
+          dn = num * q;
+      }
+      dp[v] = dn;
+      sc[(2 + v) * sps] = dn;
+    }
+    sc[0] = cpv;
+    sc[sps] = cpt;
+  };
 
-    for (int v = g ? tv : 0; v < (g ? tv + 1 : tv); ++v) {
-      const float* tvar = temp + v * fs;
-      float d_prev = 0.f;
-      for (int p = 0; p < n; ++p) {
-        const long long o = base + p * sp;
-        const int cl = cls[o];
-        const bool free = fr[o] == kFree;
-        float d = 0.f;
-        float a = 0.f;
+  // S buffers: the copies of chunk k + S - 1 run while chunk k is walked
+  Row<NV, kForce> pv, cu, nx;
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nch) fetch_fwd(c);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nch; ++k) {
+    if (k + S - 1 < nch) fetch_fwd(k + S - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();
+    __syncthreads();
+    if (valid) {
+      const int rows_v = min(R, n - k * R);
+#pragma unroll 1
+      for (int r = 0; r < rows_v; ++r) {
+        read_fwd(k, r, nx);
+        const int q = k * R + r;
+        if (q == 0) {
+          pv = nx;
+          cu = nx;
+          continue;
+        }
+        fwd_step(q - 1, pv, cu, nx);
+        pv = cu;
+        cu = nx;
+      }
+    }
+    __syncthreads();
+  }
+  if (valid) fwd_step(n - 1, pv, cu, cu);
+  // this thread's scratch stores before its copies of them below
+  __threadfence_block();
+  __syncthreads();
+
+  // ---- backward buffers: chunk k in buffer b
+  auto fetch_bwd = [&](int k, int b) {
+    const unsigned st = sb + 4u * (b * Tl::kBwd);
+    auto plane = [&](int i) { return st + 4u * (i * kPlane); };
+    const int p0 = k * R, rows_v = chunk_rows(k);
+    const bool full = is_full(k);
+    const long long o0 = base0 + (long long)p0 * g.sp;
+#pragma unroll
+    for (int j = 0; j < Tl::kNs; ++j)
+      scl.copy(plane(j), scratch + j * sps + p0 * lines + line0, full,
+               rows_v, lines_v, NoShift());
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      fld.copy(plane(Tl::kNs + v), temp + v * g.fs + o0, full, rows_v,
+               lines_v, NoShift());
+      fld.copy(plane(Tl::kNs + NV + v), op + v * g.fs + o0, full, rows_v,
+               lines_v, NoShift());
+    }
+    copy_mask<kZ, R, kW>(plane(Tl::kBwdPlanes), t, rows_v, lines_v,
+                         mk[0] + (kZ ? p0 : (long long)p0 * g.sp), sp, s2);
+  };
+
+  // ---- backward walk: substitution, UpdateSegment and the NODE_IN merge
+  // (3D) or the 2D copy-then-merge.  X/Y write out and tn directly; Z puts
+  // them into the row's d' and temp slots, which it has read
+  float x[NV];
+  float* const out0 = out + base0 + t * g.s2;
+  float* const tn0 = tn + base0 + t * g.s2;
+  auto bwd_row = [&](int b, int k, int r) {
+    float* st = smem + b * Tl::kBwd;
+    const int i = r * kS + t, p = k * R + r;
+    const float cpv_r = st[i], cpt_r = st[kPlane + i];
+    const int seg = kZ ? t : r, idx = kZ ? r : t;
+    const int cl = mask_at<kW>(
+        reinterpret_cast<const unsigned*>(st + Tl::kBwdPlanes * kPlane), seg,
+        idx, run_off(0, k * R, seg));
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float dpv = st[(2 + v) * kPlane + i];
+      x[v] = p == n - 1 ? dpv
+                        : __fsub_rn(dpv, __fmul_rn(v == tv ? cpt_r : cpv_r,
+                                                   x[v]));
+      const float told = st[(Tl::kNs + v) * kPlane + i];
+      const float oprev = st[(Tl::kNs + NV + v) * kPlane + i];
+      float onew, tnew = told;
+      if (two_d) {
+        onew = cl == kInterior ? x[v] : oprev;
+        if (cl == kInterior) tnew = m.first ? x[v] : (told + x[v]) * 0.5f;
+      } else {
+        onew = cl != 0 ? x[v] : oprev;
         if (cl == kInterior) {
-          const long long om = p > 0 ? o - sp : o;
-          const long long on = p < n - 1 ? o + sp : o;
-          a = -__fmul_rn(adv[o], s.inv2h) - vis;
-          d = __fmul_rn(rhs[v * fs + o], s.inv3dt);
-          if (v == m.axis_var) {
-            const float gT = __fmul_rn(tT[on] - tT[om], s.inv2h);
-            d = __fsub_rn(d, __fmul_rn(s.v_T, gT));
-          } else if (v == tv && forcing) {
-            d = __fadd_rn(d, forcing[o]);
-          } else if (v == tv) {
-            const float gav = __fmul_rn(adv[on] - adv[om], s.inv2h);
-            const float go1 = __fmul_rn(t1[on] - t1[om], s.inv2h);
-            const float go2 = __fmul_rn(t2[on] - t2[om], s.inv2h);
-            const float h1 = __fmul_rn(adv[o + p1] - adv[o + m1], s.inv2h_1);
-            const float h2 = __fmul_rn(adv[o + p2] - adv[o + m2], s.inv2h_2);
-            const float sav = __fmul_rn(2.f * gav, gav);
-            const float s1 = __fmul_rn(go1, go1), s2 = __fmul_rn(go2, go2);
-            // the term order of ops/pair_sweep._forcing
-            float diss = axis == 0   ? __fadd_rn(__fadd_rn(sav, s1), s2)
-                         : axis == 1 ? __fadd_rn(__fadd_rn(s1, sav), s2)
-                                     : __fadd_rn(__fadd_rn(s1, s2), sav);
-            diss = __fadd_rn(__fadd_rn(diss, __fmul_rn(go1, h1)),
-                             __fmul_rn(go2, h2));
-            d = __fadd_rn(d, __fmul_rn(s.t_phi, diss));
-          }
-        } else if (cl == kBC0 || cl == kBC1) {
-          d = free ? 0.f : tvar[o];
-          if (cl == kBC1 && free) a = two_d ? 1.f : -1.f;
+          tnew = (told + onew) * 0.5f;
+          if (m.gmerge) tnew = (tnew + onew) * 0.5f;
         }
-        float dn;
-        if (p == 0) {
-          dn = d / rr[0];
-        } else {
-          const float num = __fsub_rn(d, __fmul_rn(d_prev, a));
-          dn = m.exact ? num / rr[p * lines] : num * rr[p * lines];
-        }
-        dp[p * lines] = dn;
-        d_prev = dn;
       }
-
-      // backward substitution, UpdateSegment and the NODE_IN merge (3D),
-      // or the 2D copy-then-merge
-      float x = 0.f;
-      for (int p = n - 1; p >= 0; --p) {
-        const long long o = base + p * sp;
-        x = p == n - 1 ? dp[p * lines]
-                       : __fsub_rn(dp[p * lines], __fmul_rn(cp[p * lines], x));
-        const int cl = cls[o];
-        const float told = tvar[o];
-        float onew, tnew = told;
-        if (two_d) {
-          onew = cl == kInterior ? x : op[v * fs + o];
-          if (cl == kInterior) tnew = m.first ? x : (told + x) * 0.5f;
-        } else {
-          onew = cl != 0 ? x : op[v * fs + o];
-          if (cl == kInterior) {
-            tnew = (told + onew) * 0.5f;
-            if (m.gmerge) tnew = (tnew + onew) * 0.5f;
-          }
-        }
-        out[v * fs + o] = onew;
-        tn[v * fs + o] = tnew;
+      if constexpr (kZ) {
+        st[(2 + v) * kPlane + i] = onew;
+        st[(Tl::kNs + v) * kPlane + i] = tnew;
+      } else {
+        out0[v * g.fs + (long long)p * g.sp] = onew;
+        tn0[v * g.fs + (long long)p * g.sp] = tnew;
       }
     }
+  };
+
+  // Z: out and tn of chunk k from buffer b, as the copies mapped it: L runs
+  // of R contiguous floats
+  auto store_tile = [&](int b, int k) {
+    const float* st = smem + b * Tl::kBwd + fld.s0 / 4;
+    const int rows_v = chunk_rows(k);
+    const bool full = is_full(k);
+    float* const o_out = out + base0 + (long long)k * R * g.sp + fld.g0;
+    float* const o_tn = tn + (o_out - out);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (full || (fld.row(j) < rows_v && fld.line(j) < lines_v)) {
+        const int i = j * fld.kStep, o = j * fld.gs;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          o_out[v * g.fs + o] = st[(2 + v) * kPlane + i];
+          o_tn[v * g.fs + o] = st[(Tl::kNs + v) * kPlane + i];
+        }
+      }
+    }
+  };
+
+  // the walk runs from the last chunk down: the kk-th in buffer kk % S
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nch) fetch_bwd(nch - 1 - c, c);
+    cp_async_commit();
+  }
+  for (int kk = 0; kk < nch; ++kk) {
+    const int k = nch - 1 - kk, b = kk % S;
+    if (kk + S - 1 < nch) fetch_bwd(k - (S - 1), (kk + S - 1) % S);
+    cp_async_commit();
+    cp_async_wait<S - 1>();
+    __syncthreads();
+    if (valid) {
+#pragma unroll 1
+      for (int r = min(R, n - k * R) - 1; r >= 0; --r) bwd_row(b, k, r);
+    }
+    if constexpr (kZ) {
+      __syncthreads();
+      store_tile(b, k);
+    }
+    __syncthreads();
   }
 }
 
-int launch(const void* temp, const void* cls, const void* bcv,
-           const void* bct, const void* rhs, const void* op,
-           const void* forcing, void* out, void* tn, void* scratch, int nx,
-           int ny, int nz, int axis, const Mode& m, const Scal& s,
-           void* stream) {
+struct Ptrs {
+  const float* temp;
+  const int8_t *cls, *bcv, *bct;
+  const float *rhs, *op, *forcing;
+  float *out, *tn, *scratch;
+};
+
+template <int NV, bool kForce, bool kZ, bool kExact, int L, int R, int S>
+int launch_tiles(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
+                 cudaStream_t stream) {
+  using Tl = Tile<NV, kForce, kZ, L, R, S>;
+  const int bytes = Tl::kWords * 4;
+  auto kernel = pair_sweep_iter_kernel<NV, kForce, kZ, kExact, L, R, S>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((g.n2 + L - 1) / L, g.n1);
+  kernel<<<grid, L, bytes, stream>>>(a.temp, a.cls, a.bcv, a.bct, a.rhs, a.op,
+                                     a.forcing, a.out, a.tn, a.scratch, g, m,
+                                     s);
+  return (int)cudaGetLastError();
+}
+
+template <int NV, bool kForce, bool kZ, int L, int R, int S>
+int launch_exact(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
+                 cudaStream_t st) {
+  return m.exact ? launch_tiles<NV, kForce, kZ, true, L, R, S>(a, g, m, s, st)
+                 : launch_tiles<NV, kForce, kZ, false, L, R, S>(a, g, m, s,
+                                                                st);
+}
+
+// Z (axis 2) is the contiguous axis: the rows-fast tiles, in 3D their own
+// shape
+template <int NV, bool kForce>
+int launch_mode(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
+                cudaStream_t st) {
+  if constexpr (NV == 3) {
+    return g.axis == 2
+               ? launch_exact<3, kForce, true, k2dL, k2dR, k2dS>(a, g, m, s, st)
+               : launch_exact<3, kForce, false, k2dL, k2dR, k2dS>(a, g, m, s,
+                                                                  st);
+  } else {
+    return g.axis == 2
+               ? launch_exact<NV, kForce, true, kZL, kZR, kZS>(a, g, m, s, st)
+               : launch_exact<NV, kForce, false, kXyL, kXyR, kXyS>(a, g, m, s,
+                                                                   st);
+  }
+}
+
+int launch(const Ptrs& a, int nx, int ny, int nz, int axis, const Mode& m,
+           const Scal& s, void* stream) {
   const long long sx = (long long)ny * nz, sy = nz, sz = 1;
-  int n, n1, n2;
-  long long sp, s1, s2;
+  Geo g;
+  g.axis = axis;
+  g.fs = (long long)nx * ny * nz;
   if (axis == 0) {
-    n = nx; sp = sx; n1 = ny; s1 = sy; n2 = nz; s2 = sz;
+    g.n = nx; g.sp = sx; g.n1 = ny; g.s1 = sy; g.n2 = nz; g.s2 = sz;
   } else if (axis == 1) {
-    n = ny; sp = sy; n1 = nx; s1 = sx; n2 = nz; s2 = sz;
+    g.n = ny; g.sp = sy; g.n1 = nx; g.s1 = sx; g.n2 = nz; g.s2 = sz;
   } else if (axis == 2) {
-    n = nz; sp = sz; n1 = nx; s1 = sx; n2 = ny; s2 = sy;
+    g.n = nz; g.sp = sz; g.n1 = nx; g.s1 = sx; g.n2 = ny; g.s2 = sy;
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  if (n < 1 || n1 < 1 || n2 < 1 || n1 > 65535 || m.nvars < 3 ||
-      m.nvars > 4 || m.axis_var < 0 || m.axis_var >= m.nvars - 1)
+  // a chunk's offsets are 32-bit: up to 32 rows of sp and a line count
+  if (g.n < 1 || g.n1 < 1 || g.n2 < 1 || g.n1 > 65535 || m.nvars < 3 ||
+      m.nvars > 4 || m.axis_var < 0 || m.axis_var >= m.nvars - 1 ||
+      g.sp * 32 > 0x7fffffffLL || (long long)g.n1 * g.n2 > 0x7fffffffLL / 32)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(kThreads);
-  const dim3 grid((n2 + kThreads - 1) / kThreads, n1);
-  pair_sweep_iter_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)temp, (const int8_t*)cls, (const int8_t*)bcv,
-      (const int8_t*)bct, (const float*)rhs, (const float*)op,
-      (const float*)forcing, (float*)out, (float*)tn, (float*)scratch, n, sp,
-      n1, s1, n2, s2, (long long)nx * ny * nz, axis, m, s);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (m.nvars == 4)
+    return a.forcing ? launch_mode<4, true>(a, g, m, s, st)
+                     : launch_mode<4, false>(a, g, m, s, st);
+  if (!a.forcing) return (int)cudaErrorInvalidValue;  // 2D: stream only
+  return launch_mode<3, true>(a, g, m, s, st);
 }
 
 }  // namespace
 
 // Launch one pair-sweep iteration on ``stream``.  All fields are
 // contiguous (4, nx, ny, nz) float32; masks (nx, ny, nz) int8; scratch
-// holds 3 * n * (lines) floats, n the sweep length.  Returns
+// holds 6 * n * (lines) floats, n the sweep length.  Returns
 // cudaGetLastError().
 extern "C" int cmcfs_pair_sweep_iter(
     const void* temp, const void* cls, const void* bcv, const void* bct,
@@ -254,15 +695,18 @@ extern "C" int cmcfs_pair_sweep_iter(
   const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, t_phi, inv2h_1,
                inv2h_2};
   const Mode m{4, axis, exact, gmerge, 0};
-  return launch(temp, cls, bcv, bct, rhs, op, nullptr, out, tn, scratch, nx,
-                ny, nz, axis, m, s, stream);
+  const Ptrs a{(const float*)temp, (const int8_t*)cls, (const int8_t*)bcv,
+               (const int8_t*)bct, (const float*)rhs, (const float*)op,
+               nullptr, (float*)out, (float*)tn, (float*)scratch};
+  return launch(a, nx, ny, nz, axis, m, s, stream);
 }
 
 // Launch one stream-sweep iteration: as above with the T forcing
 // ``forcing`` (nx, ny, nz) float32 = t_phi * diss_axis(temp) and no
-// global-merge fold; fields (nvars, nx, ny, nz).  3D: nvars 4, axis_var =
-// axis.  2D: nvars 3 on the view (1, nx, ny) (the 2D rows and update,
-// ``first``), inv3dt = 1/dt.  Returns cudaGetLastError().
+// global-merge fold; fields (nvars, nx, ny, nz), scratch (nvars + 2) * n *
+// (lines) floats.  3D: nvars 4, axis_var = axis.  2D: nvars 3 on the view
+// (1, nx, ny) (the 2D rows and update, ``first``), inv3dt = 1/dt.  Returns
+// cudaGetLastError().
 extern "C" int cmcfs_stream_sweep_iter(
     const void* temp, const void* cls, const void* bcv, const void* bct,
     const void* rhs, const void* op, const void* forcing, void* out,
@@ -273,6 +717,9 @@ extern "C" int cmcfs_stream_sweep_iter(
   if (!forcing) return (int)cudaErrorInvalidValue;
   const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, 0.f, 0.f, 0.f};
   const Mode m{nvars, axis_var, exact, 0, first};
-  return launch(temp, cls, bcv, bct, rhs, op, forcing, out, tn, scratch, nx,
-                ny, nz, axis, m, s, stream);
+  const Ptrs a{(const float*)temp, (const int8_t*)cls, (const int8_t*)bcv,
+               (const int8_t*)bct, (const float*)rhs, (const float*)op,
+               (const float*)forcing, (float*)out, (float*)tn,
+               (float*)scratch};
+  return launch(a, nx, ny, nz, axis, m, s, stream);
 }

@@ -90,10 +90,7 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
                               exact, gmerge)
     if temp4.device.type != "cuda":
         raise RuntimeError(f"pair_sweep has no kernel for {temp4.device}")
-    n = cls.shape[axis]
-    # c', r, d' rows per line, shared by both launches (same stream)
-    scratch = torch.empty((3, n, cls.numel() // n), dtype=torch.float32,
-                          device=temp4.device)
+    scratch = new_scratch(4, cls, axis)    # both launches (same stream)
     out1, tn1 = launch_iteration(temp4, cls, bcv, bct, rhs4, out_prev4,
                                  None, scratch, s, axis, exact, False)
     launches.count += 1
@@ -101,6 +98,15 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
                                  scratch, s, axis, exact, gmerge)
     launches.count += 1
     return out4, tn4
+
+
+def new_scratch(nvars, cls, axis):
+    """The kernel's Thomas scratch for ``nvars`` variables swept along
+    ``axis`` of ``cls``: c' of the velocity rows, c' of T's rows and d' of
+    each variable, (nvars + 2, n, lines) float32."""
+    n = cls.shape[axis]
+    return torch.empty((nvars + 2, n, cls.numel() // n), dtype=torch.float32,
+                       device=cls.device)
 
 
 def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,

@@ -37,7 +37,8 @@ import torch
 from ..core.types import BCtype
 from ..kernels.build import LaunchCounter
 from .masks import BC0, BC1, INTERIOR
-from .pair_sweep import _dd, check_inputs, iteration_ref, launch_iteration
+from .pair_sweep import (_dd, check_inputs, iteration_ref, launch_iteration,
+                         new_scratch)
 from .sweep_common import build_abc
 from .tridiag_rows import tridiag_rows_ref
 
@@ -57,11 +58,8 @@ def stream_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
                                 forcing, s, axis, exact)
     if temp4.device.type != "cuda":
         raise RuntimeError(f"stream_sweep has no kernel for {temp4.device}")
-    n = cls.shape[axis]
-    scratch = torch.empty((3, n, cls.numel() // n), dtype=torch.float32,
-                          device=temp4.device)
     out = launch_iteration(temp4, cls, bcv, bct, rhs4, out_prev4, forcing,
-                           scratch, s, axis, exact, False)
+                           new_scratch(4, cls, axis), s, axis, exact, False)
     launches.count += 1
     return out
 
@@ -93,14 +91,11 @@ def stream_sweep_2d(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
                                    s, axis, exact, first)
     if temp3.device.type != "cuda":
         raise RuntimeError(f"stream_sweep has no kernel for {temp3.device}")
-    n = cls.shape[axis]
-    scratch = torch.empty((3, n, cls.numel() // n), dtype=torch.float32,
-                          device=temp3.device)
     # the 3D kernel on the view (1, nx, ny): X is its axis 1, Y its axis 2
     out3, tn3 = launch_iteration(
         temp3[:, None], cls[None], bct[None], bct[None], rhs3[:, None],
-        out_prev3[:, None], forcing[None], scratch, s, axis + 1, exact,
-        False, axis_var=axis, first=first)
+        out_prev3[:, None], forcing[None], new_scratch(3, cls, axis), s,
+        axis + 1, exact, False, axis_var=axis, first=first)
     launches.count += 1
     return out3.squeeze(1), tn3.squeeze(1)
 

@@ -119,9 +119,10 @@ def profile_steps(step, steps: int) -> int:
         ent[0] += 1
         ent[1] += e - s
     total = sum(t for _, t in by_name.values())
-    # the profiler names them "(anonymous namespace)::<kernel>(<args>)"
+    # the profiler names them "(anonymous namespace)::<kernel>(<args>)",
+    # templates "...::<kernel><4, false, true, 64, 8>(<args>)"
     ours = sum(t for name, (_, t) in by_name.items()
-               if any(k + "(" in name for k in PORT_KERNELS))
+               if any(k + c in name for k in PORT_KERNELS for c in "(<"))
     span = (max(e.time_range.end for e in prof.events())
             - min(e.time_range.start for e in prof.events()))
     busy = _busy_us([(s, e) for _, s, e in kernels])

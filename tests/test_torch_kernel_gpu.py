@@ -14,7 +14,9 @@ contracts mul-adds into FMAs where eager PyTorch rounds every op; the
 diagonally dominant Thomas rows do not amplify ulp-level differences.
 The probes round as their plain versions do and are held to them bit for
 bit, but for the variants that measure contraction (1e-6 relative) and
-cyclic reduction against Thomas (1e-5).
+cyclic reduction against Thomas (1e-5).  So are the pair and stream
+sweeps on the edges of their tiles (``*_edges_bitwise``: ragged chunks
+and blocks, grid-edge lines, random classes).
 """
 import numpy as np
 import pytest
@@ -348,6 +350,101 @@ def test_step_rows_3d_on_gpu_matches_cpu(backend):
     (x_c, e_c), (x_g, e_g) = steps["cpu"], steps["cuda"]
     assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
     _within(x_g, x_c)
+
+
+def _edge_fields(rng, shape, nvars, segments_axis=None):
+    """Random classes (INTERIOR never on a face of the grid, where the
+    kernel clamps neighbours that the plain version wraps) or, along
+    ``segments_axis``, whole segments (2D FREE rows); random FREE codes;
+    noisy temp, rhs and out_prev; and a forcing."""
+    if segments_axis is None:
+        cls = rng.choice([0, 1, 2, 3], shape, p=[.1, .1, .1, .7])
+        face = np.zeros(shape, dtype=bool)
+        for ax in range(len(shape)):
+            idx = [slice(None)] * len(shape)
+            for end in (0, -1):
+                idx[ax] = end
+                face[tuple(idx)] = True
+        cls[face] = rng.integers(0, 3, int(face.sum()))
+    else:
+        cls = _segments(rng, shape, segments_axis)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device="cuda")
+
+    fields = [t(0.3 * rng.standard_normal((nvars,) + shape))
+              for _ in range(3)]
+    masks = [t(cls, torch.int8)] + [t(rng.integers(0, 2, shape), torch.int8)
+                                    for _ in range(2)]
+    return masks, fields, t(0.1 * rng.standard_normal(shape))
+
+
+# the tiles of pair_sweep.cu (lines x rows): 3D X/Y 64 x 2, Z 64 x 8, 2D
+# 32 x 8; lines of 5, 37 and 256 rows, 33 and 100 lines along the block's
+# axis (nz on X and Y, ny on Z), so chunks and blocks run ragged (Z at
+# (3, 100, 37): a full 64-line block and a ragged one, each with full
+# 8-row chunks and a ragged last one); every line at the grid's faces is
+# an edge line whose cross neighbours are clamped
+_EDGE_3D = [((37, 7, 33), 0), ((256, 3, 33), 0), ((6, 5, 100), 1),
+            ((4, 256, 33), 1), ((9, 33, 37), 2), ((4, 100, 5), 2),
+            ((3, 100, 37), 2), ((3, 33, 256), 2)]
+_PAIR_SCAL = np.array([0.5, 0.7, 30.0, 5.0, 0.3, 0.01, 4.0, 6.0],
+                      dtype=np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gmerge", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _EDGE_3D)
+def test_pair_kernel_edges_bitwise(shape, axis, exact, gmerge):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis)
+    (cls, bcv, bct), (temp4, rhs4, op4), _ = _edge_fields(rng, shape, 4)
+    args = (temp4, cls, bcv, bct, rhs4, op4, _PAIR_SCAL, axis, exact, gmerge)
+    before = ps.launches.count
+    out_k, tn_k = ps.pair_sweep(*args)
+    assert ps.launches.count == before + 2
+    for g, w in zip((out_k, tn_k), ps.pair_sweep_ref(*args)):
+        assert _max_err(g, w) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _EDGE_3D)
+def test_stream_kernel_edges_bitwise(shape, axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 1)
+    (cls, bcv, bct), (temp4, rhs4, op4), forcing = _edge_fields(rng, shape,
+                                                                 4)
+    args = (temp4, cls, bcv, bct, rhs4, op4, forcing, _PAIR_SCAL[:5], axis,
+            exact)
+    out_k, tn_k = _counted(ss, lambda: ss.stream_sweep(*args))
+    for g, w in zip((out_k, tn_k), ss.stream_sweep_ref(*args)):
+        assert _max_err(g, w) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", [((37, 100), 0), ((100, 37), 1),
+                                         ((256, 33), 0), ((33, 256), 1),
+                                         ((5, 1024), 0), ((1024, 5), 1)])
+def test_stream_sweep_2d_kernel_edges_bitwise(shape, axis, exact, first):
+    """The 2D tile (32 lines, 8 rows): 33, 100 and 1,024 lines, lines of
+    5, 37 and 256 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 2)
+    (cls, _, bct), (temp3, rhs3, op3), forcing = _edge_fields(
+        rng, shape, 3, segments_axis=axis)
+    scal = np.array([30.0, 20.0, 1000.0, 250.0, 1.0], dtype=np.float32)
+    args = (temp3, cls, bct, rhs3, op3, forcing, scal, axis, exact, first)
+    out_k, tn_k = _counted(ss, lambda: ss.stream_sweep_2d(*args))
+    for g, w in zip((out_k, tn_k), ss.stream_sweep_2d_ref(*args)):
+        assert _max_err(g, w) == 0.0
 
 
 def _cuda_gen(seed):
