@@ -29,15 +29,17 @@ and nvcc.  Phases, each of which raises on failure:
    divergence error, host grid-build time, NetCDF output; one whole step
    kernel vs plain;
 9. line-sweep kernel vs plain on that 383^3 state (X / Y / Z, lines past
-   the TPU kernels' 288-cell cap) and on the 256^3 box (X), both
-   ``exact`` modes, with CUDA-event times;
+   the TPU kernels' 288-cell cap; Z also at each Z tile the source
+   builds, ``line_sweep.Z_ROWS``) and on the 256^3 box (X / Y / Z, the
+   ``fused_dma`` shapes), both ``exact`` modes, with CUDA-event times;
 10. the 2D modes and the row solve vs plain: the 2D line sweep on the
    2D box case (``scripts/gen_box_case.gen_2d``, 1041^2) and on the
    2048^2 lid cavity, X / Y; the 2D stream sweep on the 1024^2 lid
    cavity, X / Y, ``first`` both ways; the tridiag_rows kernel on the 2D
-   box's rows (3 variables, X / Y, scan and pallas forms) and on one
-   variable of the 256^3 pair slice's state (X / Y / Z); both ``exact``
-   modes, with CUDA-event times;
+   box's rows (3 variables, X / Y, scan and pallas forms) and on the
+   256^3 pair slice's state (X / Y / Z), u, v and w on their shared rows
+   (k = 3, one launch) and T (k = 1); both ``exact`` modes, with
+   CUDA-event times;
 11. 2d1024 (``bench.py --case 2d1024``'s configuration: lid cavity 1024^2,
    physical parameters, dt 0.0005, ng=2 nl=1, ``exact=False``, backend
    ``fused_nl``): dispatch stream on X and Y, 2 stream launches per global
@@ -50,8 +52,9 @@ and nvcc.  Phases, each of which raises on failure:
    backends ``pallas`` and ``scan`` from its state (tridiag_rows
    launches), each against the ``fused_dma`` step;
 14. the 3D row path: one step each of ``pallas`` and ``scan`` from the
-   256^3 pair slice's state (96 tridiag_rows launches each), each
-   against the pair step;
+   256^3 pair slice's state (48 tridiag_rows launches each: (u, v, w)
+   and T per direction and local iteration), each against the pair
+   step;
 15. the probes: ``cmcfs_tpu_torch.probes``' five measurement probes
    (row cost, ILP, slab copy, the stream-kernel floors, in-kernel
    dissipation) at their scripts' defaults, every variant's kernel
@@ -142,21 +145,28 @@ KERNELS = {
         # temp3, rhs3, out_prev3, forcing in; cls and bct (int8); out3,
         # tn3 out
         36 + 4 + 2 + 24, 3 * 30),
-    # per (cell, variable): a, b, c, d in, x out; timed on one 256^3
-    # variable (3D row path) and on the 2D box's 3 variables
+    # the 3D row path's velocity launch, timed at 256^3: a, b, c and the
+    # d of u, v, w in, their x out (k = 3); 4 operations a cell for c', 5
+    # for each d' and x
     "tridiag_rows": (
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
-        20, 8),
+        12 + 3 * 8, 4 + 3 * 5),
+    # per (cell, variable): a, b, c, d in, x out; the 2D box's 3 variables
     "tridiag_rows_2d": (
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
         20, 8),
 }
-# bytes a cell a call that pair_sweep.cu's design moves by its source
-# note's count (148 a launch in the 3D pair mode, two launches a pair; 152
-# in the 3D stream mode; 120 in 2D; the cross-line neighbour reads, mostly
-# cache hits, left out), printed beside the compulsory bytes above with the
-# GB/s they give at the measured time: an estimate, not a measured rate
-MOVED = {"pair_sweep": 2 * 148, "stream_sweep": 152, "stream_sweep_2d": 120}
+# bytes a cell a call that each kernel's design moves by its source note's
+# count, printed beside the compulsory bytes above with the GB/s they give
+# at the measured time: an estimate, not a measured rate.  pair_sweep.cu:
+# 148 a launch in the 3D pair mode (two launches a pair), 152 in the 3D
+# stream mode, 120 in 2D (the cross-line neighbour reads, mostly cache
+# hits, left out); line_sweep.cu: 85 in 3D, 69 in 2D (the scratch's six or
+# five planes written and read); tridiag_rows.cu: 20 + 16 k, 68 for the
+# velocity launch (k = 3), 36 a variable in 2D (k = 1)
+MOVED = {"pair_sweep": 2 * 148, "stream_sweep": 152, "stream_sweep_2d": 120,
+         "line_sweep": 85, "line_sweep_2d": 69, "tridiag_rows": 68,
+         "tridiag_rows_2d": 36}
 # the probes: (source, the TPU probe it replaces, the variant whose
 # numbers the record carries: each script's first); their bytes and
 # operations come from each variant's row (cmcfs_tpu_torch/probes)
@@ -577,8 +587,23 @@ def main() -> int:
     note("line_sweep", err, [], [], 0)
 
     # ----------------------------------------- 9. line sweep vs plain
-    phase("9. line-sweep kernel vs plain PyTorch: 383^3 X / Y / Z, 256^3 X")
+    phase("9. line-sweep kernel vs plain PyTorch: 383^3 X / Y / Z (Z at each "
+          "tile), 256^3 X / Y / Z")
     k_ms, p_ms, worst = [], [], 0.0
+    z_tiles = {}
+
+    def z_tile_ms(args, xp, tk):
+        """{rows: ms} of each Z tile on args, each checked against xp; the
+        source's own tile (Z_ROWS[0]) is the one just timed (tk)."""
+        adv, pk, d4, scal, _, exact = args
+        out = {ls.Z_ROWS[0]: tk}
+        for r in ls.Z_ROWS[1:]:
+            check_close(f"line 383 Z R={r} {exact}",
+                        ls._launch(adv, pk, d4, scal, 2, 2, exact, r), xp)
+            out[r] = cuda_ms(lambda: ls._launch(adv, pk, d4, scal, 2, 2,
+                                                exact, r), 3)
+        return out
+
     ga_l = solver.ga
     temp4 = torch.stack(tuple(solver.cur))
     rhs4 = torch.stack(tuple(solver.next))
@@ -602,27 +627,34 @@ def main() -> int:
             p_ms.append(tp)
             print(f"{'383':<6}{'XYZ'[axis]:<4}{str(exact):<7}{e:>12.3e}"
                   f"{tk:>11.3f}{tp:>10.2f}", flush=True)
+            if axis == 2:
+                z_tiles[exact] = z_tile_ms(args, xp, tk)
         del d4, xk, xp
     note("line_sweep", worst, k_ms, p_ms, math.prod(shape_l))
+    print("383^3 Z by tile rows (R; the first is the source's), ms: "
+          + "; ".join(f"exact={ex}: " + ", ".join(
+              f"R={r} {t:.3f}" for r, t in zs.items())
+              for ex, zs in z_tiles.items()) + f" ({smi})")
     del solver, ga_l, temp4, rhs4
     torch.cuda.empty_cache()
     ga = grid_arrays(grid, dev)
     temp4, rhs4, _ = noisy_state(ga, grid, gen_t)
-    scal = adi3d._nl_scal(0, pa, dt)
-    d4 = adi3d.fold_d(*adi3d.fallback_rhs(0, rhs4, temp4, ga, pa, scal[2]),
-                      ga.cls_a[0])
-    for exact in (True, False):
-        args = (temp4[0], ga.pk_a[0], d4, scal[:4], 0, exact)
-        xk = ls.line_sweep(*args)
-        xp = ls.line_sweep_ref(*args)
-        torch.cuda.synchronize()
-        e = check_close(f"line 256 X {exact}", xk, xp)
-        rec["line_sweep"]["max_abs_err"] = max(
-            rec["line_sweep"]["max_abs_err"], e)
-        tk, tp = in_turns(lambda: ls.line_sweep(*args),
-                          lambda: ls.line_sweep_ref(*args), 3, 1)
-        print(f"{'256':<6}{'X':<4}{str(exact):<7}{e:>12.3e}{tk:>11.3f}"
-              f"{tp:>10.2f}", flush=True)
+    for axis in range(3):
+        scal = adi3d._nl_scal(axis, pa, dt)
+        d4 = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga, pa,
+                                              scal[2]), ga.cls_a[axis])
+        for exact in (True, False):
+            args = (temp4[axis], ga.pk_a[axis], d4, scal[:4], axis, exact)
+            xk = ls.line_sweep(*args)
+            xp = ls.line_sweep_ref(*args)
+            torch.cuda.synchronize()
+            e = check_close(f"line 256 {axis} {exact}", xk, xp)
+            rec["line_sweep"]["max_abs_err"] = max(
+                rec["line_sweep"]["max_abs_err"], e)
+            tk, tp = in_turns(lambda: ls.line_sweep(*args),
+                              lambda: ls.line_sweep_ref(*args), 3, 1)
+            print(f"{'256':<6}{'XYZ'[axis]:<4}{str(exact):<7}{e:>12.3e}"
+                  f"{tk:>11.3f}{tp:>10.2f}", flush=True)
     print(f"(one launch per call; {smi})")
 
     del temp4, rhs4, d4, xk, xp, ga
@@ -756,23 +788,31 @@ def main() -> int:
     for axis in range(3):
         scal = adi3d._nl_scal(axis, pa, dt)
         d, d_bc = adi3d.fallback_rhs(axis, rhs4, temp4, ga3, pa, scal[2])
-        d_t = adi3d.fold_d(d, d_bc, ga3.cls_a[axis])[3]
-        abc = adi3d.row_coeffs(axis, temp4[axis], ga3.cls_a[axis], ga3, pa,
-                               scal, 3)
-        for exact in (True, False):
-            e, tk, tp = compare(
-                f"rows 3D {axis} {exact}",
-                lambda: tr.tridiag_rows(*abc, d_t, axis=axis, exact=exact,
-                                        recip_row0=True)[None],
-                lambda: tr.tridiag_rows_ref(*abc, d_t, axis=axis,
-                                            exact=exact,
-                                            recip_row0=True)[None], 3, 1)
-            k_ms.append(tk)
-            p_ms.append(tp)
-            worst = max(worst, e)
-            print(f"{'rows 256^3 T':<22}{'XYZ'[axis]:<4}{str(exact):<7}"
-                  f"{e:>11.3e}{tk:>11.3f}{tp:>10.2f}", flush=True)
-        del d, d_bc, d_t, abc
+        d4 = adi3d.fold_d(d, d_bc, ga3.cls_a[axis])
+        # (u, v, w) on the velocities' rows, one launch (k = 3; the record's
+        # times), and T on its own (k = 1)
+        for label, vi, dk in (("rows 256^3 u,v,w", 0, d4[:3]),
+                              ("rows 256^3 T", 3, d4[3])):
+            abc = adi3d.row_coeffs(axis, temp4[axis], ga3.cls_a[axis], ga3,
+                                   pa, scal, vi)
+            for exact in (True, False):
+                e, tk, tp = compare(
+                    f"{label} {axis} {exact}",
+                    lambda: tr.tridiag_rows(*abc, dk, axis=axis, exact=exact,
+                                            recip_row0=True).reshape(
+                                                (-1,) + shape),
+                    lambda: tr.tridiag_rows_ref(*abc, dk, axis=axis,
+                                                exact=exact,
+                                                recip_row0=True).reshape(
+                                                    (-1,) + shape), 3, 1)
+                if vi == 0:
+                    k_ms.append(tk)
+                    p_ms.append(tp)
+                worst = max(worst, e)
+                print(f"{label:<22}{'XYZ'[axis]:<4}{str(exact):<7}"
+                      f"{e:>11.3e}{tk:>11.3f}{tp:>10.2f}", flush=True)
+            del abc
+        del d, d_bc, d4
     note("tridiag_rows", worst, k_ms, p_ms, math.prod(shape))
     print(f"(one launch per call; {smi})")
     del temp4, rhs4
@@ -915,7 +955,8 @@ def main() -> int:
     # ------------------------------------------------- 14. 3D row path
     phase("14. the 3D row path: one step each of pallas and scan from the "
           "pair slice's state, against the pair step")
-    rows_per_step = 4 * 3 * NUM_LOCAL * NUM_GLOBAL
+    # (u, v, w) and T: two launches a direction and local iteration
+    rows_per_step = 2 * 3 * NUM_LOCAL * NUM_GLOBAL
     rows_launches = 0
     for backend in ("pallas", "scan"):
         counters.reset()

@@ -86,6 +86,7 @@
 #include <cuda_runtime.h>
 
 #include "rows.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -116,22 +117,6 @@ struct Geo {
   long long sp, s1, s2, fs;
 };
 
-// cp.async of 4 bytes to the shared-window byte address ``sa``.
-__device__ __forceinline__ void cp_async4(unsigned sa, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Shared-memory layout of one block (in 4-byte words).  A plane is R rows
 // of kS floats, row r of line l at r * kS + l.  On Z, kS pads L so that
 // the rows-fast copies (R rows of 32 / R lines a warp) hit distinct banks.
@@ -145,7 +130,7 @@ template <int NV, bool kForce, bool kZ, int L, int R, int S>
 struct Tile {
   static_assert(L % 4 == 0 && (!kZ || R % 4 == 0),
                 "mask runs are copied as whole words");
-  static constexpr int kS = kZ ? L + (R >= 32 ? 1 : 32 / R) : L;
+  static constexpr int kS = tile_stride<kZ, L, R>();
   static constexpr int kPlane = R * kS;
   static constexpr int kSegs = kZ ? L : R;
   static constexpr int kW = (kZ ? R : L) / 4 + 1;
@@ -158,89 +143,6 @@ struct Tile {
   static constexpr int kBwd = kBwdPlanes * kPlane + kMask;
   static constexpr int kWords = S * (kFwd > kBwd ? kFwd : kBwd);
 };
-
-// A thread's share of a chunk's copy: the R elements it copies of each
-// plane.  Lines fast: element j is row j of line l0 = t (one coalesced run
-// a row when lines are contiguous).  Rows fast: element j is row r0 = t % R
-// of line l0 + j L / R, l0 = t / R (runs of R floats along contiguous
-// lines).  Element j lies g0 + j gs elements past the chunk's first cell
-// (rows rs, lines ls apart) and s0 + 4 j kStep bytes into the plane.
-template <bool kLinesFast, int L, int R, int kS>
-struct Lane {
-  static_assert(kLinesFast || L % R == 0, "rows-fast tiles need R | L");
-  static constexpr int kStep = kLinesFast ? kS : L / R;
-  int r0, l0, g0, gs;
-  unsigned s0;
-  __device__ Lane(int t, int rs, int ls)
-      : r0(kLinesFast ? 0 : t % R), l0(kLinesFast ? t : t / R),
-        g0(r0 * rs + l0 * ls), gs(kLinesFast ? rs : (L / R) * ls),
-        s0(4u * (r0 * kS + l0)) {}
-  __device__ int row(int j) const { return kLinesFast ? j : r0; }
-  __device__ int line(int j) const {
-    return kLinesFast ? l0 : l0 + j * (L / R);
-  }
-  // Copy the chunk of a plane whose first cell is src into the shared
-  // plane at sa; ``full`` when every element lies inside the grid, else
-  // rows [0, rows_v) of lines [0, lines_v); dl(l) shifts line l's reads.
-  template <class Dl>
-  __device__ __forceinline__ void copy(unsigned sa, const float* src,
-                                       bool full, int rows_v, int lines_v,
-                                       Dl dl) const {
-    if (full) {
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        cp_async4(sa + s0 + 4u * (j * kStep),
-                  src + (g0 + j * gs + dl(line(j))));
-    } else {
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        if (row(j) < rows_v && line(j) < lines_v)
-          cp_async4(sa + s0 + 4u * (j * kStep),
-                    src + (g0 + j * gs + dl(line(j))));
-    }
-  }
-};
-
-struct NoShift {
-  __device__ int operator()(int) const { return 0; }
-};
-
-// Copy the aligned words that cover each contiguous byte run of a mask
-// chunk into the shared plane at sa, kW words a run (a word that holds a
-// byte of the tensor never crosses a page).  X/Y: run r is row r, lines_v
-// bytes from first + r sp, its word t copied by thread t.  Z: run l is
-// line l, rows_v bytes from first + l s2, all its words by thread l.
-template <bool kZ, int R, int kW>
-__device__ __forceinline__ void copy_mask(unsigned sa, int t, int rows_v,
-                                          int lines_v, const int8_t* first,
-                                          int sp, int s2) {
-  if constexpr (kZ) {
-    if (t >= lines_v) return;
-    const uintptr_t a = (uintptr_t)(first + t * s2);
-    const int nw = ((int)(a & 3) + rows_v + 3) >> 2;
-#pragma unroll
-    for (int w = 0; w < kW; ++w)
-      if (w < nw)
-        cp_async4(sa + 4u * (t * kW + w),
-                  (const void*)((a & ~(uintptr_t)3) + 4 * w));
-  } else {
-    if (t >= kW) return;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uintptr_t a = (uintptr_t)(first + (long long)r * sp);
-      if (r < rows_v && t < (((int)(a & 3) + lines_v + 3) >> 2))
-        cp_async4(sa + 4u * (r * kW + t),
-                  (const void*)((a & ~(uintptr_t)3) + 4 * t));
-    }
-  }
-}
-
-// Byte idx of run seg, whose first byte lies ``off`` (0..3) into its word.
-template <int kW>
-__device__ __forceinline__ int mask_at(const unsigned* pl, int seg, int idx,
-                                       int off) {
-  return reinterpret_cast<const int8_t*>(pl + seg * kW)[off + idx];
-}
 
 template <int N>
 __device__ __forceinline__ float pick(const float (&a)[N], int i) {

@@ -17,9 +17,10 @@ predicates (``_dir_path``, adi3d.py:482-507):
                 the line sweep (``ops/line_sweep.py``) per line class with
                 the ``cls_b``/``take_b`` dual stitch, then UpdateSegment
                 and the NODE_IN merge.  Backends ``scan`` and ``pallas``
-                take this path with materialized (a, b, c, d) rows per
-                variable, solved by ``ops/tridiag`` (the tridiag_rows
-                kernel; ``solve_with_cls``, adi3d.py:305-332).
+                take this path with materialized (a, b, c) rows, one
+                set for u, v and w and one for T, solved by the
+                tridiag_rows kernel (``ops/tridiag_rows``, the k-form;
+                ``solve_with_cls``, adi3d.py:305-332).
 
 The choice is made on the shape after cmcfs_tpu's step-level tile padding
 decision (``_step_pad``), as cmcfs_tpu's dispatch makes it; the port does
@@ -45,7 +46,8 @@ from ..ops.masks import BC0, BC1, INTERIOR
 from ..ops.pair_sweep import pair_sweep
 from ..ops.stream_sweep import stream_sweep
 from ..ops.sweep_common import build_abc
-from ..ops.tridiag import tridiag_solve
+from ..ops.tridiag import recip_row0
+from ..ops.tridiag_rows import tridiag_rows
 from .common3d import GridArrays3D, State3D
 
 ERR_THRESHOLD = 0.01       # reference AdiSolver3D.h:32
@@ -209,15 +211,14 @@ def row_coeffs(axis, adv, cls, ga, pa, scal, vi):
 
 
 def _solve_rows(axis, d4, adv, cls, ga, pa, scal, exact, backend):
-    """solve_with_cls (adi3d.py:305-332), single device: one variable at a
-    time, so one variable's rows are alive at once."""
-    xs = []
-    for vi in range(4):
-        if vi in (0, 3):
-            a, b, c = row_coeffs(axis, adv, cls, ga, pa, scal, vi)
-        xs.append(tridiag_solve(a, b, c, d4[vi], axis=axis, exact=exact,
-                                backend=backend))
-    return torch.stack(xs)
+    """solve_with_cls (adi3d.py:305-332), single device: u, v and w share
+    their rows, so one solve takes the three of them (the tridiag_rows
+    k-form) and one T; one set of rows is alive at a time."""
+    recip = recip_row0(backend)
+    xs = [tridiag_rows(*row_coeffs(axis, adv, cls, ga, pa, scal, vi), d,
+                       axis=axis, exact=exact, recip_row0=recip)
+          for vi, d in ((0, d4[:3]), (3, d4[3]))]
+    return torch.cat((xs[0], xs[1][None]))
 
 
 def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact, backend):

@@ -4,9 +4,10 @@ Port of three TPU kernels that compute one function and differ only in
 how they tile VMEM: ``cmcfs_tpu/ops/pallas_sweep_dma.py::fused_sweep_dma``
 (lines up to 288 cells), ``pallas_sweep_long.py::fused_sweep_long``
 (longer lines, chunked) and ``pallas_sweep.py::fused_sweep`` (the
-BlockSpec form).  The CUDA kernel keeps (c', d') in global memory, so it
-has no length cap and one kernel serves all three, in their 3D form and
-their 2D one (``t_var=2, bc2d=True``).
+BlockSpec form).  The CUDA kernel (``kernels/csrc/line_sweep.cu`` on the
+shared walk of ``walk.cuh``) keeps (c', d') in a global scratch, so it has
+no length cap and one kernel serves all three, in their 3D form and their
+2D one (``t_var=2, bc2d=True``); its tiles are constants of the source.
 
 3D (``line_sweep``), in the JAX package's layout: ``adv`` (nx, ny, nz)
 float32, the sweep axis's temp velocity; ``pk`` (nx, ny, nz) int8, the
@@ -37,11 +38,13 @@ import torch
 
 from ..kernels.build import LaunchCounter
 from .sweep_common import build_abc, decode_pk
-from .tridiag_rows import tridiag_rows_ref
+from .tridiag_rows import tridiag_rows_ref, walk_scratch
 
 _F = np.float32
 
 launches = LaunchCounter()
+# the 3D Z tiles line_sweep.cu builds, by their rows (its kZR first)
+Z_ROWS = (16, 8, 32)
 
 
 def _check(adv, pk, d, scal, axis, nd):
@@ -86,11 +89,12 @@ def line_sweep_2d(adv, pk, d3, scal, axis: int, exact: bool) -> torch.Tensor:
                    exact).squeeze(1)
 
 
-def _launch(adv, pk, d, s, kaxis, axis, exact):
+def _launch(adv, pk, d, s, kaxis, axis, exact, z_rows=0):
     """One launch of line_sweep.cu on (nx, ny, nz) views; ``kaxis`` is
     the sweep axis of the view, ``axis`` the caller's (for messages).  The
     kernel reads the mode off the number of variables: 4 is 3D, 3 is 2D
-    (T = 2, the 2D FREE rows)."""
+    (T = 2, the 2D FREE rows).  ``z_rows`` names a 3D Z tile by its rows
+    (``Z_ROWS``; 0 is the source's own), for timing the alternatives."""
     if adv.device.type != "cuda":
         raise RuntimeError(f"line_sweep has no kernel for {adv.device}")
     from ..kernels.build import load_library
@@ -98,15 +102,17 @@ def _launch(adv, pk, d, s, kaxis, axis, exact):
     nvars = d.shape[0]
     n = adv.shape[kaxis]
     x = torch.empty_like(d)
-    # c' and d' of every row, per variable, laid out [row][line]
-    scratch = torch.empty((2, nvars, n, adv.numel() // n),
-                          dtype=torch.float32, device=adv.device)
+    # c' of the velocities' rows and of T's, d' of every variable, laid
+    # out [plane][row][line]; the lines are (i1, i2) over the other two
+    # axes, i2 the later
     nx, ny, nz = adv.shape
+    scratch = walk_scratch(nvars + 2, n, *(m for i, m in enumerate(adv.shape)
+                                           if i != kaxis), adv.device)
     with torch.cuda.device(adv.device):
         stream = torch.cuda.current_stream(adv.device).cuda_stream
         err = fn(adv.data_ptr(), pk.data_ptr(), d.data_ptr(), x.data_ptr(),
                  scratch.data_ptr(), nx, ny, nz, kaxis, int(exact), nvars,
-                 *(float(v) for v in s), stream)
+                 z_rows, *(float(v) for v in s), stream)
     if err != 0:
         raise RuntimeError(f"line_sweep kernel launch failed: CUDA error "
                            f"{err} (shape {tuple(adv.shape)}, axis {axis})")

@@ -20,17 +20,23 @@ ROW_BACKENDS = ("scan", "pallas")
 _UNPORTED = {"pcr": "parallel cyclic reduction (ROADMAP B1 step 5)"}
 
 
-def tridiag_solve(a, b, c, d, axis: int = 0, exact: bool = True,
-                  backend: str = "scan") -> torch.Tensor:
-    """Solve along ``axis`` with backend ``scan`` or ``pallas``."""
+def recip_row0(backend: str) -> bool:
+    """The row-0 form of a materialized-row backend: ``pallas`` multiplies
+    row 0 by its reciprocal, ``scan`` divides it; raises for the others."""
     if backend in _UNPORTED:
         raise NotImplementedError(
             f"tridiagonal backend {backend!r} is not ported: "
             f"{_UNPORTED[backend]}")
     if backend not in ROW_BACKENDS:
         raise KeyError(f"unknown tridiagonal backend {backend!r}")
+    return backend == "pallas"
+
+
+def tridiag_solve(a, b, c, d, axis: int = 0, exact: bool = True,
+                  backend: str = "scan") -> torch.Tensor:
+    """Solve along ``axis`` with backend ``scan`` or ``pallas``."""
+    recip = recip_row0(backend)
     # the kernel addresses rows by stride in a contiguous array; the model
     # paths hand it contiguous rows, so this copies only for other callers
     a, b, c, d = (t.contiguous() for t in (a, b, c, d))
-    return tridiag_rows(a, b, c, d, axis=axis, exact=exact,
-                        recip_row0=backend == "pallas")
+    return tridiag_rows(a, b, c, d, axis=axis, exact=exact, recip_row0=recip)

@@ -14,9 +14,10 @@ contracts mul-adds into FMAs where eager PyTorch rounds every op; the
 diagonally dominant Thomas rows do not amplify ulp-level differences.
 The probes round as their plain versions do and are held to them bit for
 bit, but for the variants that measure contraction (1e-6 relative) and
-cyclic reduction against Thomas (1e-5).  So are the pair and stream
-sweeps on the edges of their tiles (``*_edges_bitwise``: ragged chunks
-and blocks, grid-edge lines, random classes).
+cyclic reduction against Thomas (1e-5).  So are the pair, stream, line
+and row kernels on the edges of their tiles (``*_edges_bitwise``: ragged
+chunks and blocks, grid-edge lines, random classes or whole segments;
+the line sweep's alternative Z tiles; the row kernel's k-form).
 """
 import numpy as np
 import pytest
@@ -344,8 +345,8 @@ def test_step_rows_3d_on_gpu_matches_cpu(backend):
         new, err = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 1, pa,
                                          backend=backend, exact=False,
                                          merge_ok=merge_ok(ga))
-        # 4 variables x 3 directions, plus pass B on the dual X lines
-        assert tr.launches.count - before == (16 if dev == "cuda" else 0)
+        # (u, v, w) and T x 3 directions, plus pass B on the dual X lines
+        assert tr.launches.count - before == (8 if dev == "cuda" else 0)
         steps[dev] = (torch.stack(tuple(new)).cpu(), float(err))
     (x_c, e_c), (x_g, e_g) = steps["cpu"], steps["cuda"]
     assert np.isfinite(e_g) and abs(e_g - e_c) <= 1e-4 * abs(e_c)
@@ -445,6 +446,124 @@ def test_stream_sweep_2d_kernel_edges_bitwise(shape, axis, exact, first):
     out_k, tn_k = _counted(ss, lambda: ss.stream_sweep_2d(*args))
     for g, w in zip((out_k, tn_k), ss.stream_sweep_2d_ref(*args)):
         assert _max_err(g, w) == 0.0
+
+
+# the tiles of line_sweep.cu (lines x rows): 3D X/Y 64 x 2, Z 64 x 16 (and
+# the Z alternatives of Z_ROWS), 2D 8 x 8; lines of 1, 2, 5, 37, 256, 300
+# and 383 rows, none a multiple of 16 but 256; 33 and 100 lines along the
+# block's axis (nz on X and Y, ny on Z), so chunks and blocks run ragged
+_LINE_EDGE_3D = [((1, 3, 33), 0), ((2, 5, 100), 0), ((37, 3, 33), 0),
+                 ((383, 2, 33), 0), ((3, 5, 100), 1), ((2, 256, 33), 1),
+                 ((2, 300, 100), 1), ((3, 33, 1), 2), ((2, 100, 2), 2),
+                 ((3, 100, 5), 2), ((2, 33, 37), 2), ((2, 100, 256), 2),
+                 ((2, 33, 300), 2), ((1, 100, 383), 2)]
+
+
+def _line_case(shape, axis, nvars, seed):
+    """Whole random segments along ``axis`` (random FREE bits), noisy adv
+    and right-hand sides, on the card."""
+    rng = np.random.default_rng(seed)
+    cls = torch.tensor(_segments(rng, shape, axis), device="cuda")
+    bcv, bct = (torch.tensor(rng.integers(0, 2, shape), dtype=torch.int8,
+                             device="cuda") for _ in range(2))
+    pk = pack_masks(cls, bcv if nvars == 4 else bct, bct)
+    adv = torch.tensor(0.2 * rng.standard_normal(shape), dtype=torch.float32,
+                       device="cuda")
+    d = torch.tensor(rng.standard_normal((nvars,) + shape),
+                     dtype=torch.float32, device="cuda")
+    return adv, pk, d, np.array([0.5, 0.7, 30.0, 5.0], dtype=np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _LINE_EDGE_3D)
+def test_line_sweep_kernel_edges_bitwise(shape, axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    adv, pk, d4, scal = _line_case(shape, axis, 4, sum(shape) + 10 * axis)
+    x_k = _counted(ls, lambda: ls.line_sweep(adv, pk, d4, scal, axis, exact))
+    assert _max_err(x_k, ls.line_sweep_ref(adv, pk, d4, scal, axis,
+                                           exact)) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_rows", ls.Z_ROWS[1:])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape", [s for s, ax in _LINE_EDGE_3D if ax == 2])
+def test_line_sweep_z_tiles_bitwise(shape, exact, z_rows):
+    """The Z tiles timed beside the source's own (chip_smoke.py phase 9)
+    solve the same systems."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    adv, pk, d4, scal = _line_case(shape, 2, 4, sum(shape) + 20)
+    x_k = _counted(ls, lambda: ls._launch(adv, pk, d4, scal, 2, 2, exact,
+                                          z_rows))
+    assert _max_err(x_k, ls.line_sweep_ref(adv, pk, d4, scal, 2, exact)) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shape", [(23, 19), (300, 9), (9, 300), (1041, 37)])
+def test_line_sweep_2d_kernel_edges_bitwise(shape, axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    adv, pk, d3, scal = _line_case(shape, axis, 3, sum(shape) + 10 * axis)
+    x_k = _counted(ls, lambda: ls.line_sweep_2d(adv, pk, d3, scal, axis,
+                                                exact))
+    assert _max_err(x_k, ls.line_sweep_2d_ref(adv, pk, d3, scal, axis,
+                                              exact)) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recip_row0", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("k", [None, 1, 3])
+@pytest.mark.parametrize("shape, axis", [((37, 100), 0), ((3, 41, 29), 1),
+                                         ((70, 300), 1), ((3, 33, 37), 2),
+                                         ((5, 256, 33), 1), ((100, 5), 1)])
+def test_tridiag_rows_kernel_edges_bitwise(shape, axis, k, exact,
+                                           recip_row0):
+    """tridiag_rows.cu's tiles (32 lines x 2 rows; post == 1, 32 x 16):
+    lines along the contiguous axis at 70, 99 and 100 lines (ragged
+    blocks) of 300, 37 and 5 rows; one right-hand side (``k`` None: d
+    shaped as the rows) and the k-form at k = 1 and 3 (one launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + axis + (k or 0))
+    a = rng.uniform(-1, 1, shape)
+    c = rng.uniform(-1, 1, shape)
+    b = np.abs(a) + np.abs(c) + rng.uniform(1, 3, shape)
+    ident = rng.random(shape) < 0.15
+    a[ident], c[ident], b[ident] = 0, 0, 1
+    d = rng.standard_normal(shape if k is None else (k,) + shape)
+    rows = [torch.tensor(t, dtype=torch.float32, device="cuda")
+            for t in (a, b, c, d)]
+    x_k = _counted(tr, lambda: tr.tridiag_rows(*rows, axis=axis, exact=exact,
+                                               recip_row0=recip_row0))
+    assert x_k.shape == rows[3].shape
+    assert _max_err(x_k, tr.tridiag_rows_ref(
+        *rows, axis=axis, exact=exact, recip_row0=recip_row0)) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, launches", [(2, 2), (4, 2), (7, 3)])
+def test_tridiag_rows_k_runs_as_launches_of_3_and_1(k, launches):
+    """The kernel takes k = 1 or 3; other k run as launches of 3, then 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(k)
+    shape = (3, 70, 37)
+    a = rng.uniform(-1, 1, shape)
+    c = rng.uniform(-1, 1, shape)
+    b = np.abs(a) + np.abs(c) + rng.uniform(1, 3, shape)
+    rows = [torch.tensor(t, dtype=torch.float32, device="cuda")
+            for t in (a, b, c, rng.standard_normal((k,) + shape))]
+    before = tr.launches.count
+    x_k = tr.tridiag_rows(*rows, axis=2, exact=False, recip_row0=True)
+    assert tr.launches.count - before == launches
+    assert _max_err(x_k, tr.tridiag_rows_ref(*rows, axis=2, exact=False,
+                                             recip_row0=True)) == 0.0
 
 
 def _cuda_gen(seed):

@@ -1,6 +1,7 @@
 """The port's 3D row path (backends ``scan`` and ``pallas``: materialized
-rows per variable, ``solve_with_cls``, solved by the tridiag_rows kernel's
-plain version on the CPU) against cmcfs_tpu's same backend.
+rows, one set for u, v and w solved in one call of the tridiag_rows
+k-form and one for T, ``solve_with_cls``, on the kernel's plain version
+on the CPU) against cmcfs_tpu's same backend.
 
 * ``scan``: three steps on the lid cavity at 16x14x12 (nl 2) and on the
   FREE baffle with a hole at 20x12x12 (dual endpoints on X lines, the
