@@ -49,17 +49,37 @@ and nvcc.  Phases, each of which raises on failure:
 13. the 2D CLI: ``cmcfs_tpu_torch.cli2d.run_case`` on the 2D box case
    (``fused_dma``: the line sweep) with CDL output and its section times
    (Prepare, UpdateBoundaries, TimeStep, Output); then one step each of
-   backends ``pallas`` and ``scan`` from its state (tridiag_rows
-   launches), each against the ``fused_dma`` step;
+   backends ``pallas`` and ``scan`` (tridiag_rows launches) and ``pcr``
+   (cyclic reduction in PyTorch ops, no kernel) from its state, each
+   against the ``fused_dma`` step;
 14. the 3D row path: one step each of ``pallas`` and ``scan`` from the
    256^3 pair slice's state (48 tridiag_rows launches each: (u, v, w)
-   and T per direction and local iteration), each against the pair
-   step;
+   and T per direction and local iteration) and of ``pcr`` (no kernel),
+   each against the pair step;
 15. the probes: ``cmcfs_tpu_torch.probes``' five measurement probes
    (row cost, ILP, slab copy, the stream-kernel floors, in-kernel
    dissipation) at their scripts' defaults, every variant's kernel
    against its plain version (bit for bit but where a variant's tolerance
-   says otherwise), each probe's table printed.
+   says otherwise), each probe's table printed;
+16. duals: the lid cavity at 256^3 with the FREE baffle
+   (``geom.baffle.free_baffled``) through ``make_solver_3d("ADI",
+   backend="auto")`` at ng=4 nl=2, 3 steps: X dispatches ``pair`` on
+   lines with FREE dual endpoints (the pair kernel's dual form, 8
+   launches a step; Y and Z the dual-free pair), ms/step in both ``exact``
+   modes, the divergence check; the dual pair kernel against its plain
+   version on X and on the baffle turned onto Y and Z, both ``exact``
+   modes, gmerge, timed beside the dual-free pair on the same inputs; one
+   step against the ``fused_dma`` step (the fallback's two-pass stitch)
+   from the same state;
+17. PCR: ``run_case`` on the 256^3 box with backend ``fused_pcr`` at ng=4
+   nl=2: all three directions ``pair`` on the PCR kernel (24 launches a
+   step), ms/step; the PCR kernel against its plain version on X, Y and
+   Z, both ``exact`` modes (and with the baffle's duals on X); one step
+   against the ``fused_nl`` step from the same state (PCR against
+   Thomas: not bit for bit, held to the same bound); one step at nl=3
+   (``pair+stream``: the trailing iteration on the stream sweep); one
+   ``fused_pcr`` step on the baffle grid (PCR with the dual chains)
+   against its ``auto`` step.
 
 Every kernel's launch counter is set to 0 just before a path is driven
 and read just after; launches made to compare a kernel with its plain
@@ -77,6 +97,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOX_DX = 0.00409          # scripts/gen_box_case.gen: exactly 256^3 cells
@@ -98,6 +119,9 @@ TIMED_STEPS_2D = 10
 BOX2D_DX = 0.001
 BOX2D_SHAPE = (1041, 1041)
 CLI2D_STEPS = 5
+# the FREE baffle's lid cavity (dx 0.01, normalized parameters Re 200, Pr
+# 0.72, lambda 1.4, as the tests run it)
+BAFFLE_DT = 0.01
 # Kernel vs plain, per variable: |delta| <= TOL * max(1, max|plain|).  The
 # kernels round every product before they add it (__fmul_rn / __fadd_rn /
 # __fsub_rn), in their plain versions' order of operations, so they match
@@ -145,6 +169,24 @@ KERNELS = {
         # temp3, rhs3, out_prev3, forcing in; cls and bct (int8); out3,
         # tn3 out
         36 + 4 + 2 + 24, 3 * 30),
+    # the pair kernel's dual form, timed on the 256^3 baffle turned onto
+    # each axis: the pair's bytes and the flag plane; pass B adds its c'
+    # of two rows, d' of four variables and their substitutions, 30
+    # operations a cell an iteration
+    "pair_sweep_dual": (
+        CSRC + "pair_sweep.cu",
+        "cmcfs_tpu/ops/pallas_sweep_nl.py:1068 (has_dual: :193-202, "
+        ":417-450, :491-535)",
+        48 + 3 + 32 + 1, 2 * (4 * 40 + 30)),
+    # the PCR pair, timed at 256^3: the pair's bytes; per iteration and
+    # cell, counted from pcr_sweep.cu: 43 operations of rows, right-hand
+    # sides, dissipation and update, and 32 a level of the two chains
+    # (ops/pcr.py: 2 divisions and 16 products and sums on the velocity
+    # chain and its 3 d's, 2 and 10 on T's), ceil(log2 256) = 8 levels
+    "pcr_sweep": (
+        CSRC + "pcr_sweep.cu",
+        "cmcfs_tpu/ops/pallas_sweep_nl.py:1068 (pcr: :538-660, :758-1012)",
+        48 + 3 + 32, 2 * (43 + 32 * 8)),
     # the 3D row path's velocity launch, timed at 256^3: a, b, c and the
     # d of u, v, w in, their x out (k = 3); 4 operations a cell for c', 5
     # for each d' and x
@@ -163,10 +205,12 @@ KERNELS = {
 # stream mode, 120 in 2D (the cross-line neighbour reads, mostly cache
 # hits, left out); line_sweep.cu: 85 in 3D, 69 in 2D (the scratch's six or
 # five planes written and read); tridiag_rows.cu: 20 + 16 k, 68 for the
-# velocity launch (k = 3), 36 a variable in 2D (k = 1)
+# velocity launch (k = 3), 36 a variable in 2D (k = 1); the dual pair 198
+# a launch; pcr_sweep.cu 99 a launch
 MOVED = {"pair_sweep": 2 * 148, "stream_sweep": 152, "stream_sweep_2d": 120,
          "line_sweep": 85, "line_sweep_2d": 69, "tridiag_rows": 68,
-         "tridiag_rows_2d": 36}
+         "tridiag_rows_2d": 36, "pair_sweep_dual": 2 * 198,
+         "pcr_sweep": 2 * 99}
 # the probes: (source, the TPU probe it replaces, the variant whose
 # numbers the record carries: each script's first); their bytes and
 # operations come from each variant's row (cmcfs_tpu_torch/probes)
@@ -268,6 +312,7 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
+    import numpy as np
     if not os.path.isdir(os.path.join(ROOT, "cmcfs_tpu_torch")):
         fail(f"cmcfs_tpu_torch/ not found beside {__file__}: run from a "
              "checkout of the repository")
@@ -309,12 +354,17 @@ def main() -> int:
                                                  update_boundaries)
     from cmcfs_tpu_torch.ops import line_sweep as ls
     from cmcfs_tpu_torch.ops import pair_sweep as ps
+    from cmcfs_tpu_torch.ops import pcr_sweep as pcs
     from cmcfs_tpu_torch.ops import stream_sweep as ss
     from cmcfs_tpu_torch.ops import tridiag_rows as tr
     from cmcfs_tpu_torch.ops.stencil import div_error_3d
 
+    # the pair kernel's dual form counts its launches apart
     counters = Counters(pair_sweep=ps, line_sweep=ls, stream_sweep=ss,
-                        tridiag_rows=tr)
+                        tridiag_rows=tr,
+                        pair_sweep_dual=types.SimpleNamespace(
+                            launches=ps.dual_launches),
+                        pcr_sweep=pcs)
     rec = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
                "launches": 0, "max_abs_err": 0.0, "ms": None,
                "plain_ms": None, "bound_ms": None, "bound_by": None,
@@ -426,17 +476,18 @@ def main() -> int:
     phase(f"5. pair slice: cli3d.run_case, 256^3 box, ng={NUM_GLOBAL} "
           f"nl={NUM_LOCAL}, {SLICE_STEPS} steps")
 
-    def run_slice(data, cfgp, base, steps, want_dirs, want_launches):
+    def run_slice(data, cfgp, base, steps, want_dirs, want_launches,
+                  backend="auto"):
         counters.reset()
         solver, errs = cli3d.run_case(data, os.path.join(work, base), cfgp,
                                       max_steps=steps, collect_errs=True,
-                                      device=dev)
+                                      device=dev, backend=backend)
         torch.cuda.synchronize()
         got = counters.read()
         nl = cli3d.Config.load(cfgp).num_local
         rep = solver.dispatch_report(nl)
         print(f"\ndispatch: backend={rep['backend']} pad={rep['pad']} "
-              f"dirs={rep['dirs']} (num_local={nl})")
+              f"pcr={rep['pcr']} dirs={rep['dirs']} (num_local={nl})")
         print(f"kernel launches over {steps} steps: {got} "
               f"(expected {want_launches})")
         if set(rep["dirs"].values()) != {want_dirs}:
@@ -929,7 +980,7 @@ def main() -> int:
                                             **kw2)
     ref3 = torch.stack(ref3)
     rows_launches = 0
-    for backend in ("pallas", "scan"):
+    for backend in ("pallas", "scan", "pcr"):
         counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -938,27 +989,44 @@ def main() -> int:
         step_ms = (time.perf_counter() - t0) * 1e3
         got = counters.read()
         want = {k: 0 for k in got}
-        want["tridiag_rows"] = 2 * cfg2.num_local * it
-        e = check_close(f"2D {backend} step vs fused_dma step",
-                        torch.stack(new3), ref3)
+        # pcr: cyclic reduction in PyTorch ops, as cmcfs_tpu's XLA ops
+        want["tridiag_rows"] = (0 if backend == "pcr"
+                                else 2 * cfg2.num_local * it)
+        if backend == "pcr":
+            # PCR is not Thomas: this box's rows are far from diagonally
+            # dominant (dt 0.125, h 1 mm, physical parameters: adv/(2h) up
+            # to about 820 against b = 108) and v_T = 461 turns one ulp of
+            # T into 115 of v a sweep, so the two part well beyond TOL, as
+            # cmcfs_tpu's own pcr does (on the CPU its step lies 0.25 from
+            # the port's on v here; tests/test_torch_pcr.py holds the two
+            # together on normalized parameters): the step is checked for
+            # finite values and its distance printed
+            new3 = torch.stack(new3)
+            if not bool(torch.isfinite(new3).all()):
+                fail("2D pcr step: non-finite values")
+            e = max(max_rel_err(new3, ref3)[0])
+        else:
+            e = check_close(f"2D {backend} step vs fused_dma step",
+                            torch.stack(new3), ref3)
         print(f"{backend}: {it} global iterations, launches {got}, "
               f"max|delta| vs fused_dma step {e:.3e}, {step_ms:.2f} ms for "
               f"the step ({smi})")
-        if got != want or it != it_ref:
+        if got != want or (it != it_ref and backend != "pcr"):
             fail(f"2D {backend}: launches {got} (expected {want}), "
                  f"{it} global iterations (fused_dma {it_ref})")
         rows_launches += got["tridiag_rows"]
-        note("tridiag_rows_2d", e, [], [], 0)
+        if backend != "pcr":
+            note("tridiag_rows_2d", e, [], [], 0)
     rec["tridiag_rows_2d"]["launches"] = rows_launches
     del solver2, args2, ref3, new3
 
     # ------------------------------------------------- 14. 3D row path
-    phase("14. the 3D row path: one step each of pallas and scan from the "
-          "pair slice's state, against the pair step")
+    phase("14. the 3D row path: one step each of pallas, scan and pcr from "
+          "the pair slice's state, against the pair step")
     # (u, v, w) and T: two launches a direction and local iteration
     rows_per_step = 2 * 3 * NUM_LOCAL * NUM_GLOBAL
     rows_launches = 0
-    for backend in ("pallas", "scan"):
+    for backend in ("pallas", "scan", "pcr"):
         counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -970,12 +1038,14 @@ def main() -> int:
         e = check_close(f"3D {backend} step vs pair step", new4, rows_ref4)
         print(f"{backend}: launches {got}, max|delta| vs pair step {e:.3e}, "
               f"{step_ms:.2f} ms for the step ({smi})", flush=True)
-        if got["tridiag_rows"] != rows_per_step or \
-                sum(got.values()) != rows_per_step:
-            fail(f"3D {backend}: launches {got}, expected {rows_per_step} "
+        want_rows = 0 if backend == "pcr" else rows_per_step
+        if got["tridiag_rows"] != want_rows or \
+                sum(got.values()) != want_rows:
+            fail(f"3D {backend}: launches {got}, expected {want_rows} "
                  "of tridiag_rows")
         rows_launches += got["tridiag_rows"]
-        note("tridiag_rows", e, [], [], 0)
+        if backend != "pcr":
+            note("tridiag_rows", e, [], [], 0)
         del new4
     rec["tridiag_rows"]["launches"] = rows_launches
     del rows_args, rows_ref4
@@ -1012,6 +1082,195 @@ def main() -> int:
             "ms": row.ms, "plain_ms": row.plain_ms, "bound_ms": row.bound_ms,
             "bound_by": row.bound_by, "library_ms": row.library_ms,
             "variant": head, "worst_variant": [worst.variant, worst.err]}
+
+    # ---------------------------------------------------------- 16. duals
+    phase(f"16. duals: the FREE baffle at 256^3, make_solver_3d('ADI', "
+          f"'auto'), ng={NUM_GLOBAL} nl={NUM_LOCAL}, {SLICE_STEPS} steps")
+    from cmcfs_tpu_torch.geom.baffle import free_baffled
+    from cmcfs_tpu_torch.models.common3d import dual_flags
+    from cmcfs_tpu_torch.models.solver3d import make_solver_3d
+    from cmcfs_tpu_torch.ops import masks as pmasks
+    t0 = time.perf_counter()
+    bgrid = free_baffled(*shape)
+    bsolver = make_solver_3d("ADI", backend="auto", device=dev)
+    bsolver.init(bgrid, FluidParams.normalized(200.0, 0.72, 1.4))
+    print(f"baffle grid {shape}, its line classes and dual plane built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rep = bsolver.dispatch_report(NUM_LOCAL)
+    duals = [f is not None for f in bsolver.ga.dual_flags]
+    print(f"dispatch: {rep}; dual plane per axis {duals}; merge_ok "
+          f"{bsolver.merge_ok}")
+    if rep["dirs"] != {"X": "pair", "Y": "pair", "Z": "pair"} or \
+            duals != [True, False, False]:
+        fail(f"baffle dispatch {rep['dirs']} with duals {duals}, expected "
+             "all pair and duals on X")
+    counters.reset()
+    berrs = []
+    for _ in range(SLICE_STEPS):
+        bsolver.update_boundaries()
+        bsolver.time_step(BAFFLE_DT, NUM_GLOBAL, NUM_LOCAL)
+        berrs.append(bsolver.last_err)
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = {k: 0 for k in got}
+    # X: one dual pair (2 launches) a global iteration; Y and Z dual-free
+    want["pair_sweep_dual"] = SLICE_STEPS * NUM_GLOBAL * NUM_LOCAL
+    want["pair_sweep"] = SLICE_STEPS * NUM_GLOBAL * 2 * NUM_LOCAL
+    print(f"kernel launches over {SLICE_STEPS} steps: {got} (expected "
+          f"{want}); divergence error per step {berrs} (threshold "
+          f"{adi3d.ERR_THRESHOLD})")
+    if got != want:
+        fail(f"baffle launch counts {got} != {want}")
+    if any(not bool(torch.isfinite(f).all()) for f in bsolver.cur):
+        fail("non-finite fields after the baffle slice")
+    rec["pair_sweep_dual"]["launches"] = got["pair_sweep_dual"]
+    timing["256 baffle"] = time_steps(bsolver, BAFFLE_DT, NUM_LOCAL,
+                                      TIMED_STEPS, math.prod(shape))
+
+    def baffle_on(axis, temp4, rhs4, op4):
+        """The baffle's operands turned so that its wall is normal to
+        ``axis`` (X: as built): (temp4, cls, bcv, bct, rhs4, op4, flags)."""
+        perm = ((0, 1, 2), (1, 0, 2), (2, 1, 0))[axis]
+        p4 = (0,) + tuple(q + 1 for q in perm)
+        turn = (lambda a: np.ascontiguousarray(np.transpose(a, perm)))
+        types, bcv, bct = (turn(np.asarray(a)) for a in (
+            bgrid.types, bgrid.bc_vel, bgrid.bc_temp))
+        lc = pmasks.line_class_3d(types, axis)
+
+        def t(a, dtype=torch.int8):
+            return torch.tensor(a, dtype=dtype, device=dev)
+
+        cls = t(lc.cls_a)
+        flags = dual_flags(cls, t(lc.cls_b), t(lc.take_b, torch.bool))
+        return ((temp4.permute(p4).contiguous(), cls, t(bcv), t(bct),
+                 rhs4.permute(p4).contiguous(), op4.permute(p4).contiguous(),
+                 flags))
+
+    btemp4, brhs4, bop4 = noisy_state(bsolver.ga, bgrid, gen_t)
+    k_ms, p_ms, worst = [], [], 0.0
+    print(f"{'dir':<4}{'exact':<7}{'max|d out|':>12}{'max|d tn|':>12}"
+          f"{'dual ms':>9}{'dual-free ms':>14}{'plain ms':>10}")
+    for axis in range(3):
+        temp4a, cls, bcv, bct, rhs4a, op4a, flags = baffle_on(
+            axis, btemp4, brhs4, bop4)
+        scal = adi3d._nl_scal(axis, bsolver.pa, BAFFLE_DT)
+        for exact in (True, False):
+            args = (temp4a, cls, bcv, bct, rhs4a, op4a, scal, axis, exact,
+                    True)
+            ok4, tk4 = ps.pair_sweep(*args, flags)
+            op4r, tp4r = ps.pair_sweep_ref(*args, flags)
+            torch.cuda.synchronize()
+            eo = check_close(f"dual pair {axis} {exact} out", ok4, op4r)
+            et = check_close(f"dual pair {axis} {exact} tn", tk4, tp4r)
+            worst = max(worst, eo, et)
+            tk, tp = in_turns(lambda: ps.pair_sweep(*args, flags),
+                              lambda: ps.pair_sweep_ref(*args, flags), 5, 1)
+            t_free = cuda_ms(lambda: ps.pair_sweep(*args), 5)
+            k_ms.append(tk)
+            p_ms.append(tp)
+            print(f"{'XYZ'[axis]:<4}{str(exact):<7}{eo:>12.3e}{et:>12.3e}"
+                  f"{tk:>9.3f}{t_free:>14.3f}{tp:>10.2f}", flush=True)
+        if axis == 0:
+            x_args = (temp4a, cls, bcv, bct, rhs4a, op4a, flags)
+        del temp4a, rhs4a, op4a, ok4, tk4, op4r, tp4r
+    print(f"(times per pair = 2 kernel launches, the dual-free pair on the "
+          f"same inputs beside it; {smi})")
+    note("pair_sweep_dual", worst, k_ms, p_ms, math.prod(shape))
+    bsolver.update_boundaries()
+    b_args = (bsolver.cur, bsolver.next, bsolver.ga, BAFFLE_DT, NUM_GLOBAL,
+              NUM_LOCAL, bsolver.pa)
+    b_kw = dict(exact=False, compute_error=False, merge_ok=bsolver.merge_ok)
+    b_ref4 = torch.stack(adi3d.adi_timestep_3d(*b_args, **b_kw)[0])
+    new4 = torch.stack(adi3d.adi_timestep_3d(*b_args, backend="fused_dma",
+                                             **b_kw)[0])
+    e = check_close("baffle step vs the fused_dma step", b_ref4, new4)
+    print(f"one step against the fused_dma step (the fallback's two-pass "
+          f"stitch): max|delta| {e:.3e}")
+    del new4, btemp4, brhs4, bop4
+
+    # ------------------------------------------------------------ 17. PCR
+    phase(f"17. PCR: cli3d.run_case, 256^3 box, backend fused_pcr, "
+          f"ng={NUM_GLOBAL} nl={NUM_LOCAL}, {SLICE_STEPS} steps")
+    want = {k: 0 for k in counters.read()}
+    want["pcr_sweep"] = SLICE_STEPS * per_step
+    psolver, got = run_slice(data, cfgp, "box_pcr", SLICE_STEPS, "pair",
+                             want, backend="fused_pcr")
+    if not psolver.dispatch_report(NUM_LOCAL)["pcr"]:
+        fail("fused_pcr does not dispatch the PCR pair")
+    rec["pcr_sweep"]["launches"] = got["pcr_sweep"]
+    timing["256 fused_pcr"] = time_steps(psolver, dt, NUM_LOCAL, TIMED_STEPS,
+                                         math.prod(shape))
+    temp4, rhs4, op4 = noisy_state(psolver.ga, grid, gen_t)
+    k_ms, p_ms, worst = [], [], 0.0
+    print(f"{'dir':<7}{'exact':<7}{'max|d out|':>12}{'max|d tn|':>12}"
+          f"{'kernel ms':>11}{'plain ms':>10}")
+    cases = [(axis, exact, None) for axis in range(3)
+             for exact in (True, False)] + [(0, False, "baffle")]
+    for axis, exact, which in cases:
+        if which is None:
+            args = (temp4, psolver.ga.cls_a[axis], psolver.ga.bc_vel,
+                    psolver.ga.bc_temp, rhs4, op4,
+                    adi3d._nl_scal(axis, pa, dt), axis, exact, axis == 0,
+                    None)
+        else:
+            args = x_args[:6] + (adi3d._nl_scal(0, bsolver.pa, BAFFLE_DT), 0,
+                                 exact, True, x_args[6])
+        ok4, tk4 = pcs.pcr_sweep(*args)
+        op4r, tp4r = pcs.pcr_sweep_ref(*args)
+        torch.cuda.synchronize()
+        label = "XYZ"[axis] + (" dual" if which else "")
+        eo = check_close(f"pcr {label} {exact} out", ok4, op4r)
+        et = check_close(f"pcr {label} {exact} tn", tk4, tp4r)
+        worst = max(worst, eo, et)
+        tk, tp = in_turns(lambda: pcs.pcr_sweep(*args),
+                          lambda: pcs.pcr_sweep_ref(*args), 5, 1)
+        if which is None:
+            k_ms.append(tk)
+            p_ms.append(tp)
+        print(f"{label:<7}{str(exact):<7}{eo:>12.3e}{et:>12.3e}{tk:>11.3f}"
+              f"{tp:>10.2f}", flush=True)
+    print(f"(times per pair = 2 kernel launches; {smi})")
+    note("pcr_sweep", worst, k_ms, p_ms, math.prod(shape))
+    del temp4, rhs4, op4, ok4, tk4, op4r, tp4r, x_args, args
+    psolver.update_boundaries()
+    p_args = (psolver.cur, psolver.next, psolver.ga, dt, NUM_GLOBAL)
+    p_kw = dict(exact=False, compute_error=False, merge_ok=psolver.merge_ok)
+    for nl, paths in ((NUM_LOCAL, "pair"), (3, "pair+stream")):
+        counters.reset()
+        new4 = torch.stack(adi3d.adi_timestep_3d(
+            *p_args, nl, psolver.pa, backend="fused_pcr", **p_kw)[0])
+        torch.cuda.synchronize()
+        got = counters.read()
+        want = {k: 0 for k in got}
+        want["pcr_sweep"] = NUM_GLOBAL * 3 * (nl // 2) * 2
+        want["stream_sweep"] = NUM_GLOBAL * 3 * (nl % 2)
+        ref4 = torch.stack(adi3d.adi_timestep_3d(
+            *p_args, nl, psolver.pa, backend="fused_nl", **p_kw)[0])
+        errs, bounds = max_rel_err(new4, ref4)
+        print(f"fused_pcr nl={nl} ({paths}) step: launches {got} (expected "
+              f"{want}); against the fused_nl (Thomas) step from the same "
+              f"state, max|delta| per variable {errs}, bound "
+              f"{TOL} * max(1, max|field|) = {bounds}")
+        if got != want:
+            fail(f"fused_pcr nl={nl}: launches {got} != {want}")
+        check_close(f"fused_pcr nl={nl} step vs fused_nl step", new4, ref4)
+        del new4, ref4
+    counters.reset()
+    new4 = torch.stack(adi3d.adi_timestep_3d(*b_args, backend="fused_pcr",
+                                             **b_kw)[0])
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = {k: 0 for k in got}
+    want["pcr_sweep"] = NUM_GLOBAL * 3 * NUM_LOCAL
+    errs, bounds = max_rel_err(new4, b_ref4)
+    print(f"fused_pcr on the baffle (PCR with the dual chains on X): "
+          f"launches {got} (expected {want}); against its auto step, "
+          f"max|delta| per variable {errs}, bounds {bounds}")
+    if got != want:
+        fail(f"fused_pcr on the baffle: launches {got} != {want}")
+    check_close("fused_pcr baffle step vs auto step", new4, b_ref4)
+    del new4, b_ref4, bsolver, psolver
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ result
     phase("result")

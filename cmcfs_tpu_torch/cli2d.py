@@ -6,12 +6,13 @@ Usage (grammar of reference src/FluidSolver2D/FluidSolver2D.cpp:22-159):
     python -m cmcfs_tpu_torch.cli2d <input> <field> <output> <config> [flags]
 
 Flags: ``align`` (32-align grid dims), ``CSV`` (section table as CSV),
-``quiet``, ``backend auto|fused_dma|fused|fused_full|fused_nl|scan|pallas``
-(``auto`` is ``fused_dma``).  The run needs a CUDA device.  Each step runs
+``quiet``, ``backend
+auto|fused_dma|fused|fused_full|fused_nl|scan|pallas|pcr`` (``auto`` is
+``fused_dma``).  The run needs a CUDA device.  Each step runs
 Prepare (host geometry rebuild, line classes and upload), UpdateBoundaries,
 TimeStep, SetGridBoundaries and, every ``out_time_steps``, Output; the
 section table's times end in a device synchronize.  ``checkpoint`` and
-``resume`` exit with status 2 (ROADMAP A7).
+``resume`` exit with status 2 (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ from .models.solver2d import make_solver
 from .utils.timer import CpuTimer, print_time_step_info
 
 UNPORTED_FLAGS = {
-    "checkpoint": "checkpoint/resume (ROADMAP A7)",
-    "resume": "checkpoint/resume (ROADMAP A7)",
+    "checkpoint": "checkpoint/resume (ROADMAP A5)",
+    "resume": "checkpoint/resume (ROADMAP A5)",
 }
 
 
@@ -63,6 +64,7 @@ def run_case(input_path: str, field_path: str, output_path: str,
     if not quiet:
         print(f"dt = {dt:f}")
         print(f"dispatch: backend={solver.backend} "
+              f"pcr={solver.backend == 'pcr'} "
               f"dirs={solver.dispatch_report()}")
 
     # the reference writes the CDL header unconditionally, even in MultiVox

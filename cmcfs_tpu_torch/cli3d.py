@@ -3,8 +3,8 @@
 Usage (grammar of reference src/FluidSolver3D/FluidSolver3D.cpp:26-51):
     python -m cmcfs_tpu_torch.cli3d <input> <output_base> <config> [flags]
 
-Flags: ``align``, ``CSV`` (section table as CSV), ``quiet``,
-``backend auto|fused_nl|fused_full|fused_dma|fused|scan|pallas``;
+Flags: ``align``, ``CSV`` (section table as CSV), ``quiet``, ``backend
+auto|fused_nl|fused_pcr|fused_full|fused_dma|fused|scan|pallas|pcr``;
 ``transpose`` and ``decompose`` are accepted and have no effect, as in
 cmcfs_tpu.  The run needs a CUDA device.
 Flags of cmcfs_tpu's CLI that the port does not have yet exit with
@@ -32,19 +32,19 @@ from .utils.timer import CpuTimer, print_time_step_info
 
 # cmcfs_tpu CLI flags the port does not have yet, and where they are queued
 UNPORTED_FLAGS = {
-    "GPU": "multi-GPU runs (ROADMAP A10)",
-    "shards": "multi-GPU runs (ROADMAP A10)",
-    "blocking": "the Z-blocked wavefront X sweep (ROADMAP A10)",
-    "balance": "multi-GPU load balancing (ROADMAP A10)",
-    "hosts": "multi-host runs (ROADMAP A10)",
-    "rank": "multi-host runs (ROADMAP A10)",
-    "coordinator": "multi-host runs (ROADMAP A10)",
-    "checkpoint": "checkpoint/resume (ROADMAP A7)",
-    "resume": "checkpoint/resume (ROADMAP A7)",
-    "orbax": "the orbax checkpoint tier (ROADMAP A11)",
-    "carried": "the carried-state loop (ROADMAP A7)",
-    "profile": "the per-direction profiled step (ROADMAP A11)",
-    "dump_grid": "the BMP mask dump (ROADMAP A7)",
+    "GPU": "multi-GPU runs (ROADMAP A8)",
+    "shards": "multi-GPU runs (ROADMAP A8)",
+    "blocking": "the Z-blocked wavefront X sweep (ROADMAP A8)",
+    "balance": "multi-GPU load balancing (ROADMAP A8)",
+    "hosts": "multi-host runs (ROADMAP A8)",
+    "rank": "multi-host runs (ROADMAP A8)",
+    "coordinator": "multi-host runs (ROADMAP A8)",
+    "checkpoint": "checkpoint/resume (ROADMAP A5)",
+    "resume": "checkpoint/resume (ROADMAP A5)",
+    "orbax": "the orbax checkpoint tier (ROADMAP A5)",
+    "carried": "the carried-state loop (ROADMAP A5)",
+    "profile": "the per-direction profiled step (ROADMAP A5)",
+    "dump_grid": "the BMP mask dump (ROADMAP A5)",
 }
 
 
@@ -161,7 +161,7 @@ def run_case(input_path: str, output_base: str, config_path: str,
     if not quiet:
         rep = solver.dispatch_report(cfg.num_local)
         print(f"dispatch: backend={rep['backend']} pad={rep['pad']} "
-              f"dirs={rep['dirs']}")
+              f"pcr={rep['pcr']} dirs={rep['dirs']}")
 
     prof = SectionTimer(solver.device)
     timer = CpuTimer()

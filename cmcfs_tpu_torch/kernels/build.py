@@ -34,7 +34,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the library's entry points (argtypes, restype)
 SIGNATURES = {
-    "cmcfs_pair_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
+    "cmcfs_pair_sweep_iter": ([_P] * 10 + [_I] * 6 + [_F] * 8 + [_P], _I),
+    "cmcfs_pcr_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
     "cmcfs_stream_sweep_iter": ([_P] * 10 + [_I] * 8 + [_F] * 5 + [_P], _I),
     "cmcfs_line_sweep": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P], _I),
     "cmcfs_tridiag_rows": ([_P] * 6 + [_L, _I, _L, _I, _I, _I, _P], _I),

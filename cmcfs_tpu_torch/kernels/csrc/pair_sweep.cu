@@ -25,6 +25,13 @@
 //   pallas_sweep_stream.py:287-294).  A 2D field (nx, ny) is swept as the
 //   3D view (1, nx, ny) on axis 1 (X) or 2 (Y); ``axis_var`` names the
 //   velocity that advects.
+// The dual mode (3D pair mode with a flag plane, template kDual) replaces
+//   fused_sweep_nl's has_dual path (pallas_sweep_nl.py:193-202, 417-450,
+//   491-512, 519-535): on lines where a one-cell wall with a FREE bc ends
+//   one fluid run and starts the next, the cell is a BC1 row in pass A and
+//   a BC0 row in pass B (flag bit 0), and the solution takes pass B inside
+//   the runs that start there (bit 1).  The stream entry never sees duals
+//   (odd num_local dual directions take the line sweep, as in cmcfs_tpu).
 //
 // What bounds it on this card: device-memory traffic, and the latency of
 //   each line's serial walk where too few lines share an SM.  A launch must
@@ -66,12 +73,22 @@
 //   The int8 masks are copied as the aligned 4-byte words that cover each
 //   contiguous run (a word that holds a byte of the tensor never crosses a
 //   page) and read at the run's byte offset.
+// * Duals: the forward walk advances six more chains in lockstep, pass B's
+//   c' of the velocity and T rows and its d' of each variable, on the same
+//   d (a dual cell's d is the same in both roles); their carries part at a
+//   dual cell and meet again at the next run's start.  Pass B's planes
+//   follow pass A's in the scratch, so a launch moves 48 B a cell more,
+//   and the flag plane is read on both walks (84 B a cell compulsory, 198
+//   moved).  The backward walk substitutes both passes on their own
+//   carries and updates from pass B's value where bit 1 is set, so
+//   iteration 2 and its dissipation see the stitched field.
 // * Tiles (L x R x S, the constants kXy*, kZ*, k2d*), chosen from H100
 //   timings of the alternatives (PERF.md, Findings): 3D X/Y
 //   64 x 2 x 2 (15 KB a block, so all 65,536 lines of a 256^3 sweep are
 //   resident at once); 3D Z 64 x 8 x 3 (32-byte runs; shorter runs cost
 //   more than the occupancy they buy); 2D 32 x 8 x 3 (1,024 lines at
-//   1024^2: 32 SMs, a warp each, latency-bound).
+//   1024^2: 32 SMs, a warp each, latency-bound).  The dual mode keeps the
+//   X/Y tile and has a Z tile of its own (kZd*).
 //
 // Why a pair stays two launches: iteration 2 reads tn1 of the velocities on
 //   the neighbouring lines (the dissipation's cross derivatives), and a
@@ -85,6 +102,7 @@
 
 #include <cuda_runtime.h>
 
+#include "rhs.cuh"
 #include "rows.cuh"
 #include "tile.cuh"
 
@@ -95,6 +113,7 @@ constexpr int kFree = 1;      // core/types.py BCtype.FREE
 // Tiles: L lines a block, R rows a chunk, S chunk buffers
 constexpr int kXyL = 64, kXyR = 2, kXyS = 2;    // 3D X and Y sweeps
 constexpr int kZL = 64, kZR = 8, kZS = 3;       // 3D Z sweep
+constexpr int kZdL = 64, kZdR = 8, kZdS = 2;    // 3D Z sweep with duals
 constexpr int k2dL = 32, k2dR = 8, k2dS = 3;    // 2D sweeps (X and Y)
 
 struct Mode {
@@ -103,10 +122,6 @@ struct Mode {
   int axis_var;  // the velocity that advects along the sweep
   int exact, gmerge;
   int first;     // 2D: the first local iteration copies x into temp
-};
-
-struct Scal {                 // models/adi3d._nl_scal, float32
-  float v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, t_phi, inv2h_1, inv2h_2;
 };
 
 // The lines of one launch: line (i1, i2) starts at i1*s1 + i2*s2, its rows
@@ -125,8 +140,11 @@ struct Geo {
 // forcing (stream) or the 4 cross neighbours of adv (pair), 3 masks.
 // Backward buffer: the scratch planes, temp, out_prev, the classes; on Z,
 // out and tn of a row go back into the slots of its d' and temp once read.
-// The two walks reuse the same memory.
-template <int NV, bool kForce, bool kZ, int L, int R, int S>
+// The two walks reuse the same memory.  With duals (kDual) the scratch
+// holds pass B's planes after pass A's, and both buffers the flag plane
+// after the other masks.
+template <int NV, bool kForce, bool kZ, int L, int R, int S,
+          bool kDual = false>
 struct Tile {
   static_assert(L % 4 == 0 && (!kZ || R % 4 == 0),
                 "mask runs are copied as whole words");
@@ -135,26 +153,27 @@ struct Tile {
   static constexpr int kSegs = kZ ? L : R;
   static constexpr int kW = (kZ ? R : L) / 4 + 1;
   static constexpr int kMask = kSegs * kW;
-  static constexpr int kNs = NV + 2;                 // scratch planes
+  static constexpr int kNsA = NV + 2;                // a pass's planes
+  static constexpr int kNs = kNsA * (kDual ? 2 : 1);  // scratch planes
   static constexpr int kNx = kForce ? 1 : 4;         // forcing | neighbours
   static constexpr int kFwdPlanes = 2 * NV + kNx;
-  static constexpr int kFwd = kFwdPlanes * kPlane + 3 * kMask;
+  static constexpr int kFwd = kFwdPlanes * kPlane + (kDual ? 4 : 3) * kMask;
   static constexpr int kBwdPlanes = kNs + 2 * NV;
-  static constexpr int kBwd = kBwdPlanes * kPlane + kMask;
+  static constexpr int kBwd = kBwdPlanes * kPlane + (kDual ? 2 : 1) * kMask;
   static constexpr int kWords = S * (kFwd > kBwd ? kFwd : kBwd);
 };
 
-template <int N>
-__device__ __forceinline__ float pick(const float (&a)[N], int i) {
-  float x = a[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) x = i == k ? a[k] : x;
-  return x;
-}
+// The dual plane's byte of a row (kDual only).
+template <bool kDual>
+struct RowFlag {};
+template <>
+struct RowFlag<true> {
+  int fl;
+};
 
 // One row of a line, as the forward walk reads it from the tile.
-template <int NV, bool kForce>
-struct Row {
+template <int NV, bool kForce, bool kDual>
+struct Row : RowFlag<kDual> {
   float t[NV];                 // temp
   float rh[NV];                // rhs
   float ex[kForce ? 1 : 4];    // forcing, or adv at o-s1, o+s1, o-s2, o+s2
@@ -162,7 +181,8 @@ struct Row {
   bool fv, ft;                 // bcv, bct == FREE
 };
 
-template <int NV, bool kForce, bool kZ, bool kExact, int L, int R, int S>
+template <int NV, bool kForce, bool kZ, bool kExact, int L, int R, int S,
+          bool kDual>
 __global__ void __launch_bounds__(L, 1)
 pair_sweep_iter_kernel(const float* __restrict__ temp,
                        const int8_t* __restrict__ cls,
@@ -172,8 +192,10 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
                        const float* __restrict__ op,
                        const float* __restrict__ forcing,
                        float* __restrict__ out, float* __restrict__ tn,
-                       float* __restrict__ scratch, Geo g, Mode m, Scal s) {
-  using Tl = Tile<NV, kForce, kZ, L, R, S>;
+                       float* __restrict__ scratch, Geo g, Mode m, Scal s,
+                       const int8_t* __restrict__ flags) {
+  using Tl = Tile<NV, kForce, kZ, L, R, S, kDual>;
+  using Rw = Row<NV, kForce, kDual>;
   constexpr int kS = Tl::kS, kPlane = Tl::kPlane, kW = Tl::kW;
   constexpr int tv = NV - 1;                    // T
   constexpr bool two_d = NV == 3;
@@ -200,6 +222,13 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
   auto run_off = [&](int i, int p0, int seg) {   // mod 4: unsigned wraps
     const unsigned row0 = (unsigned)p0 * (kZ ? 1u : (unsigned)sp);
     return (int)((moff[i] + row0 + (unsigned)seg * (unsigned)rstride) & 3u);
+  };
+  // kDual: the dual plane, copied and read as the masks are
+  const int8_t* const mf = flags + base0;
+  const int foff = (int)((uintptr_t)mf & 3);
+  auto flag_off = [&](int p0, int seg) {
+    const unsigned row0 = (unsigned)p0 * (kZ ? 1u : (unsigned)sp);
+    return (int)((foff + row0 + (unsigned)seg * (unsigned)rstride) & 3u);
   };
 
   // ---- the copies: field planes in the tile's mapping, scratch planes
@@ -244,9 +273,12 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
     for (int i = 0; i < 3; ++i)
       copy_mask<kZ, R, kW>(plane(Tl::kFwdPlanes) + 4u * (i * Tl::kMask), t,
                            rows_v, lines_v, mk[i] + mo, sp, s2);
+    if constexpr (kDual)
+      copy_mask<kZ, R, kW>(plane(Tl::kFwdPlanes) + 4u * (3 * Tl::kMask), t,
+                           rows_v, lines_v, mf + mo, sp, s2);
   };
 
-  auto read_fwd = [&](int k, int r, Row<NV, kForce>& w) {
+  auto read_fwd = [&](int k, int r, Rw& w) {
     const float* st = smem + (k % S) * Tl::kFwd;
     const int i = r * kS + t;
 #pragma unroll
@@ -264,19 +296,25 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
            kFree;
     w.ft = mask_at<kW>(mw + 2 * Tl::kMask, seg, idx, run_off(2, p0, seg)) ==
            kFree;
+    if constexpr (kDual)
+      w.fl = mask_at<kW>(mw + 3 * Tl::kMask, seg, idx, flag_off(p0, seg));
   };
 
   // ---- forward walk: the six (five) chains of row p, whose neighbours
-  // along the line are pv and nx (p itself at the line's ends)
+  // along the line are pv and nx (p itself at the line's ends); with duals
+  // six more, pass B's, on the rows where a dual cell takes the BC0 start
+  // role, with the same d (pallas_sweep_nl.py:417-450, 491-512)
   const float b_int_v = s.inv3dt + 2.0f * s.v_vis_h2;
   const float b_int_t = s.inv3dt + 2.0f * s.t_vis_h2;
   float cpv = 0.f, cpt = 0.f, dp[NV];
 #pragma unroll
   for (int v = 0; v < NV; ++v) dp[v] = 0.f;
+  float cpvB = 0.f, cptB = 0.f, dpB[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) dpB[v] = 0.f;
   float* const sc0 = scratch + line0 + t;
 
-  auto fwd_step = [&](int p, const Row<NV, kForce>& pv,
-                      const Row<NV, kForce>& cu, const Row<NV, kForce>& nx) {
+  auto fwd_step = [&](int p, const Rw& pv, const Rw& cu, const Rw& nx) {
     const float adv2h = __fmul_rn(pick(cu.t, m.axis_var), s.inv2h);
     float av, bv, cv, at, bt, ct;
     build_abc(cu.cl, cu.fv, two_d, adv2h, s.v_vis_h2, b_int_v, av, bv, cv);
@@ -303,43 +341,49 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
         cpt = ct * qt;
       }
     }
+    // pass B: the rows of a dual cell take the BC0 start role
+    float avB, atB, qvB, qtB;
+    if constexpr (kDual) {
+      const int clB = (cu.fl & 1) ? kBC0 : cu.cl;
+      float bvB, cvB, btB, ctB;
+      build_abc(clB, cu.fv, two_d, adv2h, s.v_vis_h2, b_int_v, avB, bvB, cvB);
+      build_abc(clB, cu.ft, two_d, adv2h, s.t_vis_h2, b_int_t, atB, btB, ctB);
+      if (p == n - 1) cvB = ctB = 0.f;
+      if (p == 0) {
+        cpvB = cvB / bvB;
+        qvB = bvB;
+        cptB = ctB / btB;
+        qtB = btB;
+      } else {
+        const float dv = __fsub_rn(bvB, __fmul_rn(avB, cpvB));
+        const float dt = __fsub_rn(btB, __fmul_rn(atB, cptB));
+        if constexpr (kExact) {
+          cpvB = cvB / dv;
+          qvB = dv;
+          cptB = ctB / dt;
+          qtB = dt;
+        } else {
+          qvB = 1.0f / dv;
+          cpvB = cvB * qvB;
+          qtB = 1.0f / dt;
+          cptB = ctB * qtB;
+        }
+      }
+    }
     // T's forcing: the caller's, or t_phi * diss_axis(temp)
     float fT;
     if constexpr (kForce) {
       fT = cu.ex[0];
     } else {
-      const int o1 = g.axis == 0 ? 1 : 0, o2 = g.axis == 2 ? 1 : 2;
-      const float gav = __fmul_rn(
-          pick(nx.t, m.axis_var) - pick(pv.t, m.axis_var), s.inv2h);
-      const float go1 = __fmul_rn(pick(nx.t, o1) - pick(pv.t, o1), s.inv2h);
-      const float go2 = __fmul_rn(pick(nx.t, o2) - pick(pv.t, o2), s.inv2h);
-      const float h1 = __fmul_rn(cu.ex[1] - cu.ex[0], s.inv2h_1);
-      const float h2 = __fmul_rn(cu.ex[3] - cu.ex[2], s.inv2h_2);
-      const float sav = __fmul_rn(2.f * gav, gav);
-      const float q1 = __fmul_rn(go1, go1), q2 = __fmul_rn(go2, go2);
-      // the term order of ops/pair_sweep._forcing
-      float diss = g.axis == 0   ? __fadd_rn(__fadd_rn(sav, q1), q2)
-                   : g.axis == 1 ? __fadd_rn(__fadd_rn(q1, sav), q2)
-                                 : __fadd_rn(__fadd_rn(q1, q2), sav);
-      diss = __fadd_rn(__fadd_rn(diss, __fmul_rn(go1, h1)),
-                       __fmul_rn(go2, h2));
-      fT = __fmul_rn(s.t_phi, diss);
+      fT = diss_forcing(g.axis, m.axis_var, pv.t, nx.t, cu.ex, s);
     }
     const float gT = __fmul_rn(nx.t[tv] - pv.t[tv], s.inv2h);
     float* sc = sc0 + (long long)p * lines;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const bool is_t = v == tv;
-      float d = 0.f;
-      if (cu.cl == kInterior) {
-        d = __fmul_rn(cu.rh[v], s.inv3dt);
-        if (v == m.axis_var)
-          d = __fsub_rn(d, __fmul_rn(s.v_T, gT));
-        else if (is_t)
-          d = __fadd_rn(d, fT);
-      } else if (cu.cl == kBC0 || cu.cl == kBC1) {
-        d = (is_t ? cu.ft : cu.fv) ? 0.f : cu.t[v];
-      }
+      const float d = rhs_d(cu.cl, v, m.axis_var, is_t, cu.fv, cu.ft,
+                            cu.t[v], cu.rh[v], gT, fT, s);
       const float q = is_t ? qt : qv;
       float dn;
       if (p == 0) {
@@ -353,13 +397,33 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
       }
       dp[v] = dn;
       sc[(2 + v) * sps] = dn;
+      if constexpr (kDual) {
+        const float qB = is_t ? qtB : qvB;
+        float dnB;
+        if (p == 0) {
+          dnB = d / qB;
+        } else {
+          const float num =
+              __fsub_rn(d, __fmul_rn(dpB[v], is_t ? atB : avB));
+          if constexpr (kExact)
+            dnB = num / qB;
+          else
+            dnB = num * qB;
+        }
+        dpB[v] = dnB;
+        sc[(Tl::kNsA + 2 + v) * sps] = dnB;
+      }
     }
     sc[0] = cpv;
     sc[sps] = cpt;
+    if constexpr (kDual) {
+      sc[Tl::kNsA * sps] = cpvB;
+      sc[(Tl::kNsA + 1) * sps] = cptB;
+    }
   };
 
   // S buffers: the copies of chunk k + S - 1 run while chunk k is walked
-  Row<NV, kForce> pv, cu, nx;
+  Rw pv, cu, nx;
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
     if (c < nch) fetch_fwd(c);
@@ -413,12 +477,19 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
     }
     copy_mask<kZ, R, kW>(plane(Tl::kBwdPlanes), t, rows_v, lines_v,
                          mk[0] + (kZ ? p0 : (long long)p0 * g.sp), sp, s2);
+    if constexpr (kDual)
+      copy_mask<kZ, R, kW>(plane(Tl::kBwdPlanes) + 4u * Tl::kMask, t, rows_v,
+                           lines_v, mf + (kZ ? p0 : (long long)p0 * g.sp),
+                           sp, s2);
   };
 
   // ---- backward walk: substitution, UpdateSegment and the NODE_IN merge
   // (3D) or the 2D copy-then-merge.  X/Y write out and tn directly; Z puts
-  // them into the row's d' and temp slots, which it has read
+  // them into the row's d' and temp slots, which it has read.  With duals
+  // both passes substitute, each on its own carry, and the update takes
+  // pass B's value where the take bit is set (pallas_sweep_nl.py:519-535)
   float x[NV];
+  float xB[NV];   // kDual: pass B's carries
   float* const out0 = out + base0 + t * g.s2;
   float* const tn0 = tn + base0 + t * g.s2;
   auto bwd_row = [&](int b, int k, int r) {
@@ -429,12 +500,30 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
     const int cl = mask_at<kW>(
         reinterpret_cast<const unsigned*>(st + Tl::kBwdPlanes * kPlane), seg,
         idx, run_off(0, k * R, seg));
+    bool take = false;
+    float cpvB_r, cptB_r;
+    if constexpr (kDual) {
+      take = mask_at<kW>(reinterpret_cast<const unsigned*>(
+                             st + Tl::kBwdPlanes * kPlane + Tl::kMask),
+                         seg, idx, flag_off(k * R, seg)) & 2;
+      cpvB_r = st[Tl::kNsA * kPlane + i];
+      cptB_r = st[(Tl::kNsA + 1) * kPlane + i];
+    }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const float dpv = st[(2 + v) * kPlane + i];
       x[v] = p == n - 1 ? dpv
                         : __fsub_rn(dpv, __fmul_rn(v == tv ? cpt_r : cpv_r,
                                                    x[v]));
+      float xs = x[v];
+      if constexpr (kDual) {
+        const float dpB = st[(Tl::kNsA + 2 + v) * kPlane + i];
+        xB[v] = p == n - 1
+                    ? dpB
+                    : __fsub_rn(dpB, __fmul_rn(v == tv ? cptB_r : cpvB_r,
+                                               xB[v]));
+        if (take) xs = xB[v];
+      }
       const float told = st[(Tl::kNs + v) * kPlane + i];
       const float oprev = st[(Tl::kNs + NV + v) * kPlane + i];
       float onew, tnew = told;
@@ -442,10 +531,12 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
         onew = cl == kInterior ? x[v] : oprev;
         if (cl == kInterior) tnew = m.first ? x[v] : (told + x[v]) * 0.5f;
       } else {
-        onew = cl != 0 ? x[v] : oprev;
+        onew = cl != 0 ? xs : oprev;
         if (cl == kInterior) {
           tnew = (told + onew) * 0.5f;
-          if (m.gmerge) tnew = (tnew + onew) * 0.5f;
+          // rounded apart: an FMA of the half and onew parts from the
+          // plain version where the half is subnormal
+          if (m.gmerge) tnew = __fmul_rn(__fadd_rn(tnew, onew), 0.5f);
         }
       }
       if constexpr (kZ) {
@@ -507,15 +598,18 @@ struct Ptrs {
   const float* temp;
   const int8_t *cls, *bcv, *bct;
   const float *rhs, *op, *forcing;
+  const int8_t* flags;
   float *out, *tn, *scratch;
 };
 
-template <int NV, bool kForce, bool kZ, bool kExact, int L, int R, int S>
+template <int NV, bool kForce, bool kZ, bool kExact, int L, int R, int S,
+          bool kDual = false>
 int launch_tiles(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
                  cudaStream_t stream) {
-  using Tl = Tile<NV, kForce, kZ, L, R, S>;
+  using Tl = Tile<NV, kForce, kZ, L, R, S, kDual>;
   const int bytes = Tl::kWords * 4;
-  auto kernel = pair_sweep_iter_kernel<NV, kForce, kZ, kExact, L, R, S>;
+  auto kernel =
+      pair_sweep_iter_kernel<NV, kForce, kZ, kExact, L, R, S, kDual>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -524,20 +618,23 @@ int launch_tiles(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
   const dim3 grid((g.n2 + L - 1) / L, g.n1);
   kernel<<<grid, L, bytes, stream>>>(a.temp, a.cls, a.bcv, a.bct, a.rhs, a.op,
                                      a.forcing, a.out, a.tn, a.scratch, g, m,
-                                     s);
+                                     s, a.flags);
   return (int)cudaGetLastError();
 }
 
-template <int NV, bool kForce, bool kZ, int L, int R, int S>
+template <int NV, bool kForce, bool kZ, int L, int R, int S,
+          bool kDual = false>
 int launch_exact(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
                  cudaStream_t st) {
-  return m.exact ? launch_tiles<NV, kForce, kZ, true, L, R, S>(a, g, m, s, st)
-                 : launch_tiles<NV, kForce, kZ, false, L, R, S>(a, g, m, s,
-                                                                st);
+  return m.exact
+             ? launch_tiles<NV, kForce, kZ, true, L, R, S, kDual>(a, g, m, s,
+                                                                  st)
+             : launch_tiles<NV, kForce, kZ, false, L, R, S, kDual>(a, g, m,
+                                                                   s, st);
 }
 
 // Z (axis 2) is the contiguous axis: the rows-fast tiles, in 3D their own
-// shape
+// shape; the 3D pair mode with duals (flags) has its own instantiations
 template <int NV, bool kForce>
 int launch_mode(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
                 cudaStream_t st) {
@@ -547,6 +644,14 @@ int launch_mode(const Ptrs& a, const Geo& g, const Mode& m, const Scal& s,
                : launch_exact<3, kForce, false, k2dL, k2dR, k2dS>(a, g, m, s,
                                                                   st);
   } else {
+    if constexpr (!kForce) {
+      if (a.flags)
+        return g.axis == 2
+                   ? launch_exact<NV, false, true, kZdL, kZdR, kZdS, true>(
+                         a, g, m, s, st)
+                   : launch_exact<NV, false, false, kXyL, kXyR, kXyS, true>(
+                         a, g, m, s, st);
+    }
     return g.axis == 2
                ? launch_exact<NV, kForce, true, kZL, kZR, kZS>(a, g, m, s, st)
                : launch_exact<NV, kForce, false, kXyL, kXyR, kXyS>(a, g, m, s,
@@ -585,21 +690,24 @@ int launch(const Ptrs& a, int nx, int ny, int nz, int axis, const Mode& m,
 }  // namespace
 
 // Launch one pair-sweep iteration on ``stream``.  All fields are
-// contiguous (4, nx, ny, nz) float32; masks (nx, ny, nz) int8; scratch
-// holds 6 * n * (lines) floats, n the sweep length.  Returns
-// cudaGetLastError().
+// contiguous (4, nx, ny, nz) float32; masks (nx, ny, nz) int8; ``flags``
+// the dual plane (nx, ny, nz) int8 (bit 0: the cell takes the BC0 start
+// role in pass B; bit 1: the stitch takes pass B), or null on dual-free
+// lines; scratch holds 6 * n * (lines) floats, n the sweep length, twice
+// that with flags.  Returns cudaGetLastError().
 extern "C" int cmcfs_pair_sweep_iter(
     const void* temp, const void* cls, const void* bcv, const void* bct,
-    const void* rhs, const void* op, void* out, void* tn, void* scratch,
-    int nx, int ny, int nz, int axis, int exact, int gmerge, float v_vis_h2,
-    float t_vis_h2, float inv3dt, float inv2h, float v_T, float t_phi,
-    float inv2h_1, float inv2h_2, void* stream) {
+    const void* rhs, const void* op, const void* flags, void* out, void* tn,
+    void* scratch, int nx, int ny, int nz, int axis, int exact, int gmerge,
+    float v_vis_h2, float t_vis_h2, float inv3dt, float inv2h, float v_T,
+    float t_phi, float inv2h_1, float inv2h_2, void* stream) {
   const Scal s{v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T, t_phi, inv2h_1,
                inv2h_2};
   const Mode m{4, axis, exact, gmerge, 0};
   const Ptrs a{(const float*)temp, (const int8_t*)cls, (const int8_t*)bcv,
                (const int8_t*)bct, (const float*)rhs, (const float*)op,
-               nullptr, (float*)out, (float*)tn, (float*)scratch};
+               nullptr, (const int8_t*)flags, (float*)out, (float*)tn,
+               (float*)scratch};
   return launch(a, nx, ny, nz, axis, m, s, stream);
 }
 
@@ -621,7 +729,7 @@ extern "C" int cmcfs_stream_sweep_iter(
   const Mode m{nvars, axis_var, exact, 0, first};
   const Ptrs a{(const float*)temp, (const int8_t*)cls, (const int8_t*)bcv,
                (const int8_t*)bct, (const float*)rhs, (const float*)op,
-               (const float*)forcing, (float*)out, (float*)tn,
+               (const float*)forcing, nullptr, (float*)out, (float*)tn,
                (float*)scratch};
   return launch(a, nx, ny, nz, axis, m, s, stream);
 }

@@ -18,7 +18,9 @@ Each direction takes one of three paths, chosen by cmcfs_tpu's predicates
 * "line"   the 2D line sweep (``ops/line_sweep.line_sweep_2d``) on an RHS
            built here, for the other fused backends and directions;
 * "rows"   materialized (a, b, c, d) rows solved by ``ops/tridiag``
-           (backends ``scan`` and ``pallas``: the tridiag_rows kernel).
+           (backends ``scan`` and ``pallas``: the tridiag_rows kernel;
+           ``pcr``: cyclic reduction in PyTorch ops, ``ops/pcr.py``, as
+           cmcfs_tpu computes it in XLA ops).
 
 The line and row paths divide (``cur/dt``, ``stencil.d1``); the stream
 kernel multiplies by 1/dt and 1/(2h) and reads Dirichlet values from
@@ -48,12 +50,12 @@ MAX_GLOBAL_ITERS = 100     # reference AdiSolver2D.h:25
 _F = np.float32
 # backends of the 2D step: the fused ones run the line sweep (and, where
 # the stream predicates hold, the stream sweep for fused_full/fused_nl);
-# scan and pallas solve materialized rows with the tridiag_rows kernel
+# scan and pallas solve materialized rows with the tridiag_rows kernel,
+# pcr by cyclic reduction
 FUSED = ("fused", "fused_dma", "fused_full", "fused_nl")
-BACKENDS = FUSED + ("scan", "pallas")
+BACKENDS = FUSED + ("scan", "pallas", "pcr")
 _UNPORTED = {
-    "fused_bf16": "the bf16 payloads (ROADMAP B1 step 4)",
-    "pcr": "parallel cyclic reduction (ROADMAP B1 step 5)",
+    "fused_bf16": "the bf16 payloads (ROADMAP B2)",
 }
 
 

@@ -10,23 +10,30 @@ when X ends on one.
 Each direction takes one of cmcfs_tpu's four paths, chosen by the same
 predicates (``_dir_path``, adi3d.py:482-507):
 
-* "pair"        the pair sweep (``ops/pair_sweep.py``), num_local/2 times;
-* "pair+stream" the pairs, then one stream iteration (odd num_local);
+* "pair"        the pair sweep (``ops/pair_sweep.py``; under ``fused_pcr``
+                its PCR form, ``ops/pcr_sweep.py``), num_local/2 times,
+                lines with FREE dual endpoints stitched in the kernel
+                (the ``dual_flags`` plane);
+* "pair+stream" the pairs, then one stream iteration (odd num_local;
+                dual-free only, Thomas under ``fused_pcr`` too, as in
+                cmcfs_tpu);
 * "stream"      num_local stream iterations (``ops/stream_sweep.py``);
 * "fallback"    per iteration: the RHS built here with ``ops/stencil``,
                 the line sweep (``ops/line_sweep.py``) per line class with
                 the ``cls_b``/``take_b`` dual stitch, then UpdateSegment
-                and the NODE_IN merge.  Backends ``scan`` and ``pallas``
-                take this path with materialized (a, b, c) rows, one
-                set for u, v and w and one for T, solved by the
-                tridiag_rows kernel (``ops/tridiag_rows``, the k-form;
-                ``solve_with_cls``, adi3d.py:305-332).
+                and the NODE_IN merge.  Backends ``scan``, ``pallas`` and
+                ``pcr`` take this path with materialized (a, b, c) rows,
+                one set for u, v and w and one for T, solved by
+                ``ops/tridiag.tridiag_solve`` (the tridiag_rows kernel in
+                its k-form, or PCR; ``solve_with_cls``, adi3d.py:305-332).
 
 The choice is made on the shape after cmcfs_tpu's step-level tile padding
 decision (``_step_pad``), as cmcfs_tpu's dispatch makes it; the port does
 not pad its tensors, since padded cells are inert identity rows.  The
 TPU's layout machinery (xmode, stacked, targeted, carried) is not ported:
-on the TPU it is bitwise equal to the per-direction path.
+on the TPU it is bitwise equal to the per-direction path.  Under the
+default xmode layout cmcfs_tpu runs PCR on every pair direction of
+``fused_pcr`` (adi3d.py:559-575, 971-975), and so does the port.
 
 The step keeps the fields stacked (4, nx, ny, nz): it stacks ``cur`` and
 ``nxt_prev`` once, and the returned State3D's fields are views of one
@@ -44,10 +51,10 @@ from ..ops import stencil
 from ..ops.line_sweep import line_sweep
 from ..ops.masks import BC0, BC1, INTERIOR
 from ..ops.pair_sweep import pair_sweep
+from ..ops.pcr_sweep import pcr_sweep
 from ..ops.stream_sweep import stream_sweep
 from ..ops.sweep_common import build_abc
-from ..ops.tridiag import recip_row0
-from ..ops.tridiag_rows import tridiag_rows
+from ..ops.tridiag import tridiag_solve
 from .common3d import GridArrays3D, State3D
 
 ERR_THRESHOLD = 0.01       # reference AdiSolver3D.h:32
@@ -64,15 +71,15 @@ _AXES = ((0, "X"), (1, "Y"), (2, "Z"))
 _DISS = (stencil.diss_x_3d, stencil.diss_y_3d, stencil.diss_z_3d)
 # backends the port runs, and the ROADMAP item of those it does not; the
 # fused ones are cmcfs_tpu's step-pad list (adi3d.py:728-732) as far as
-# ported, scan and pallas solve materialized rows
-FUSED = ("fused_nl", "fused_full", "fused_dma", "fused")
-BACKENDS = FUSED + ("scan", "pallas")
+# ported, scan, pallas and pcr solve materialized rows
+FUSED = ("fused_nl", "fused_pcr", "fused_full", "fused_dma", "fused")
+BACKENDS = FUSED + ("scan", "pallas", "pcr")
+# the backends whose pair directions run the pair kernel
+PAIR_BACKENDS = ("fused_nl", "fused_pcr")
 _UNPORTED = {
-    "pcr": "parallel cyclic reduction (ROADMAP B1 step 5)",
-    "fused_pcr": "the pair kernel's pcr mode (ROADMAP B1 step 5)",
-    "fused_pcr_bf16": "the pair kernel's pcr and bf16 modes (ROADMAP B1 "
-                      "steps 4-5)",
-    "fused_bf16": "the bf16 payloads (ROADMAP B1 step 4)",
+    "fused_pcr_bf16": "the bf16 payloads of the pcr pair kernel (ROADMAP "
+                      "B2)",
+    "fused_bf16": "the bf16 payloads (ROADMAP B2)",
 }
 
 
@@ -126,7 +133,8 @@ def _step_pad(shape3: tuple, backend: str):
     """cmcfs_tpu's step-level tile padding decision (adi3d.py:716-743) on
     a single device: the (px, py, pz) pads to (8, 128, 128) multiples when
     they grow the grid by at most 25 %, else None; None for the
-    row backends (scan, pallas), as cmcfs_tpu pads only its fused list."""
+    row backends (scan, pallas, pcr), as cmcfs_tpu pads only its fused
+    list."""
     if backend not in FUSED:
         return None
     tgt = tuple(-n % t for n, t in zip(shape3, _STEP_TILES))
@@ -138,7 +146,7 @@ def _step_pad(shape3: tuple, backend: str):
 def _nl_pair_active(n_sweep: int, backend: str, merge_ok_ax: bool,
                     dual_free: bool, num_local: int) -> bool:
     """Does this direction run the pair sweep (adi3d.py:459-479)?"""
-    if backend != "fused_nl" or num_local < 2:
+    if backend not in PAIR_BACKENDS or num_local < 2:
         return False
     if not dual_free and num_local % 2 != 0:
         return False
@@ -148,7 +156,7 @@ def _nl_pair_active(n_sweep: int, backend: str, merge_ok_ax: bool,
 def _dir_path(n_sweep: int, backend: str, merge_ok_ax: bool,
               dual_free: bool, num_local: int) -> str:
     """cmcfs_tpu's _dir_path (adi3d.py:482-507) on a single device."""
-    if backend not in ("fused_full", "fused_nl") or n_sweep > MAX_SWEEP:
+    if backend not in ("fused_full",) + PAIR_BACKENDS or n_sweep > MAX_SWEEP:
         return "fallback"
     if _nl_pair_active(n_sweep, backend, merge_ok_ax, dual_free, num_local):
         return "pair" if num_local % 2 == 0 else "pair+stream"
@@ -160,9 +168,10 @@ def dispatch_report(shape3: tuple, duals: tuple, backend: str,
                     merge_ok: tuple = (False, False, False)) -> dict:
     """Which implementation each direction runs, decided as cmcfs_tpu's
     dispatch_report decides it (adi3d.py:746-793) on a single device:
-    {"backend", "pad", "dirs"}, dirs {"X"|"Y"|"Z": "pair"|"pair+stream"|
-    "stream"|"fallback"}.  ``duals``: per axis, the grid keeps a dual pass
-    B (``GridArrays3D.cls_b``)."""
+    {"backend", "pad", "pcr", "dirs"}, dirs {"X"|"Y"|"Z": "pair"|
+    "pair+stream"|"stream"|"fallback"}; ``pcr``: the pair directions
+    reduce cyclically (``fused_pcr``).  ``duals``: per axis, the grid keeps
+    a dual pass B (``GridArrays3D.cls_b``)."""
     backend = resolve_backend(backend)
     pad = _step_pad(tuple(shape3), backend)
     pshape = (tuple(n + p for n, p in zip(shape3, pad)) if pad
@@ -170,7 +179,8 @@ def dispatch_report(shape3: tuple, duals: tuple, backend: str,
     dirs = {name: _dir_path(pshape[ax], backend, merge_ok[ax],
                             not duals[ax], num_local)
             for ax, name in _AXES}
-    return dict(backend=backend, pad=pad, dirs=dirs)
+    return dict(backend=backend, pad=pad, pcr=backend == "fused_pcr",
+                dirs=dirs)
 
 
 def fallback_rhs(axis, rhs4, temp4, ga, pa, inv3dt):
@@ -212,11 +222,10 @@ def row_coeffs(axis, adv, cls, ga, pa, scal, vi):
 
 def _solve_rows(axis, d4, adv, cls, ga, pa, scal, exact, backend):
     """solve_with_cls (adi3d.py:305-332), single device: u, v and w share
-    their rows, so one solve takes the three of them (the tridiag_rows
-    k-form) and one T; one set of rows is alive at a time."""
-    recip = recip_row0(backend)
-    xs = [tridiag_rows(*row_coeffs(axis, adv, cls, ga, pa, scal, vi), d,
-                       axis=axis, exact=exact, recip_row0=recip)
+    their rows, so one solve takes the three of them (the k-form) and one
+    T; one set of rows is alive at a time."""
+    xs = [tridiag_solve(*row_coeffs(axis, adv, cls, ga, pa, scal, vi), d,
+                        axis=axis, exact=exact, backend=backend)
           for vi, d in ((0, d4[:3]), (3, d4[3]))]
     return torch.cat((xs[0], xs[1][None]))
 
@@ -268,11 +277,13 @@ def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
         return temp4, out4
     n_left = num_local
     if path in ("pair", "pair+stream"):
+        sweep = pcr_sweep if backend == "fused_pcr" else pair_sweep
         pairs = num_local // 2
         for k in range(pairs):
-            out4, temp4 = pair_sweep(temp4, ga.cls_a[axis], ga.bc_vel,
-                                     ga.bc_temp, rhs4, out4, scal, axis,
-                                     exact, gmerge and k == pairs - 1)
+            out4, temp4 = sweep(temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp,
+                                rhs4, out4, scal, axis, exact,
+                                gmerge and k == pairs - 1,
+                                ga.dual_flags[axis])
         n_left = num_local % 2
     for _ in range(n_left):
         temp4, out4 = _stream_iteration(axis, rhs4, temp4, out4, ga, pa,
@@ -282,19 +293,11 @@ def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
 
 def _step_paths(ga: GridArrays3D, backend: str, num_local: int,
                merge_ok: tuple) -> list:
-    """The path of each axis (0, 1, 2) for this grid; raises where the
-    port lacks the path cmcfs_tpu would take."""
+    """The path of each axis (0, 1, 2) for this grid."""
     duals = tuple(c is not None for c in ga.cls_b)
     rep = dispatch_report(tuple(ga.types.shape), duals, backend, num_local,
                           merge_ok)
-    paths = [rep["dirs"][name] for _, name in _AXES]
-    for ax, name in _AXES:
-        if paths[ax] == "pair" and duals[ax]:
-            raise NotImplementedError(
-                f"direction {name} takes the pair sweep on lines with FREE "
-                "dual endpoints; the pair kernel's second chain is not "
-                "ported (ROADMAP B1 step 3)")
-    return paths
+    return [rep["dirs"][name] for _, name in _AXES]
 
 
 def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,

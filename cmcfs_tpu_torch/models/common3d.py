@@ -37,6 +37,7 @@ class GridArrays3D(NamedTuple):
     take_b: tuple           # per-axis bool: the stitch takes pass B here
     pk_a: tuple             # per-axis packed masks of cls_a (pack_masks)
     pk_b: tuple             # ... of cls_b (None where no duals)
+    dual_flags: tuple       # per-axis int8 dual | take << 1 (dual_flags)
 
 
 def _line_classes(types, bcv, bct):
@@ -57,6 +58,20 @@ def _line_classes(types, bcv, bct):
     return out
 
 
+def dual_flags(cls_a, cls_b, take_b):
+    """The pair kernels' dual plane of one axis, int8 a cell: bit 0 the
+    cell takes the BC0 start role in pass B (exactly where cls_b differs
+    from cls_a, ops/masks.line_class_3d), bit 1 the stitch takes pass B
+    there; None without duals.  The port's counterpart of cmcfs_tpu's
+    ``sweep_common.pack_masks_dual`` flags (sweep_common.py:47-70), built
+    once a grid: the byte a cell the dual chain reads beyond the dual-free
+    pair."""
+    if cls_b is None:
+        return None
+    return ((cls_a != cls_b).to(torch.int8)
+            + 2 * take_b.to(torch.int8)).to(torch.int8)
+
+
 def _arrays(dev, types, bcv, bct, vals, classes) -> GridArrays3D:
     """Assemble GridArrays3D from host arrays; ``dev`` moves one array."""
     t_bcv, t_bct = dev(bcv), dev(bct)
@@ -66,15 +81,17 @@ def _arrays(dev, types, bcv, bct, vals, classes) -> GridArrays3D:
 
     cls_a = tuple(dev(a) for a, _, _ in classes)
     cls_b = tuple(opt(b) for _, b, _ in classes)
+    take_b = tuple(None if tb is None else dev(np.asarray(tb, dtype=bool))
+                   for _, _, tb in classes)
     return GridArrays3D(
         types=dev(types), bc_vel=t_bcv, bc_temp=t_bct,
         val_u=dev(vals[0]), val_v=dev(vals[1]), val_w=dev(vals[2]),
-        val_T=dev(vals[3]), cls_a=cls_a, cls_b=cls_b,
-        take_b=tuple(None if tb is None else dev(np.asarray(tb, dtype=bool))
-                     for _, _, tb in classes),
+        val_T=dev(vals[3]), cls_a=cls_a, cls_b=cls_b, take_b=take_b,
         pk_a=tuple(pack_masks(c, t_bcv, t_bct) for c in cls_a),
         pk_b=tuple(None if c is None else pack_masks(c, t_bcv, t_bct)
-                   for c in cls_b))
+                   for c in cls_b),
+        dual_flags=tuple(dual_flags(*abt)
+                         for abt in zip(cls_a, cls_b, take_b)))
 
 
 def grid_arrays(grid: Grid3D, device) -> GridArrays3D:

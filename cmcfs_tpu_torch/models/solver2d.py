@@ -3,7 +3,7 @@
 Mirrors the reference Solver2D lifecycle (Init / UpdateBoundaries /
 TimeStep / SetGridBoundaries / GetLayer, src/FluidSolver2D/Solver2D.h).
 cmcfs_tpu's Explicit and Stable 2D schemes are not ported yet (ROADMAP
-A9) and raise here.
+A4) and raise here.
 """
 from __future__ import annotations
 
@@ -95,7 +95,7 @@ def make_solver(name: str, backend: str = "auto", exact: bool = True,
                 device="cuda") -> Solver2DBase:
     if name in ("Explicit", "Stable"):
         raise NotImplementedError(
-            f"2D solver {name!r} is not ported yet (ROADMAP A9)")
+            f"2D solver {name!r} is not ported yet (ROADMAP A4)")
     if name != "ADI":
         raise KeyError(name)
     return AdiSolver2D(backend=backend, exact=exact, device=device)

@@ -1,7 +1,7 @@
 """Stateful 3D solver (port of cmcfs_tpu/models/solver3d.py, ADI only).
 
 The reference implements only ADI for 3D; cmcfs_tpu adds Explicit and
-Stable, which are not ported yet (ROADMAP A8) and raise here.
+Stable, which are not ported yet (ROADMAP A4) and raise here.
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ def make_solver_3d(name: str, backend: str = "auto", exact: bool = True,
                    device="cuda"):
     if name in ("Explicit", "Stable"):
         raise NotImplementedError(
-            f"3D solver {name!r} is not ported yet (ROADMAP A8)")
+            f"3D solver {name!r} is not ported yet (ROADMAP A4)")
     if name != "ADI":
         raise KeyError(name)
     return AdiSolver3D(backend=backend, exact=exact, device=device)

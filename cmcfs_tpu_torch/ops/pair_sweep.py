@@ -1,9 +1,11 @@
 """The pair sweep: two local ADI iterations of one direction, 4 variables.
 
-Port of ``cmcfs_tpu/ops/pallas_sweep_nl.py::fused_sweep_nl`` (exact and
-gmerge; pcr, bf16 payload, the dual second chain and targeted layout
-writes are ROADMAP B1 items).  Fields keep the JAX package's layout:
-stacked (4, nx, ny, nz) float32 (u, v, w, T) and (nx, ny, nz) int8 masks.
+Port of ``cmcfs_tpu/ops/pallas_sweep_nl.py::fused_sweep_nl`` in its Thomas
+form, with gmerge and the dual second chain (``flags``).  Its pcr mode is
+``ops/pcr_sweep.py``, which shares this module's plain iteration; its bf16
+payloads (ROADMAP B2) and targeted layout writes are not ported.  Fields
+keep the JAX package's layout: stacked (4, nx, ny, nz) float32 (u, v, w,
+T) and (nx, ny, nz) int8 masks.
 
 ``pair_sweep`` dispatches on the tensors' device:
 
@@ -18,7 +20,15 @@ Per iteration (scal = models/adi3d._nl_scal):
   rhs      interior: rhs*3/dt (- v_T dT/dh on the sweep velocity,
            + t_phi*diss_axis(temp) on T); BC rows: 0 if FREE else temp;
            identity rows 0
-  solve    Thomas in the reference order (ops/tridiag.py)
+  solve    Thomas in the reference order (ops/tridiag.py), or PCR
+           (ops/pcr.py) for the pcr sweep
+  duals    ``flags`` (models/common3d.dual_flags: bit 0 the cell takes the
+           BC0 start role in pass B, bit 1 the stitch takes pass B): pass
+           B solves the rows of cls_b = where(dual, BC0, cls) on the same
+           d (the d row of a dual cell is the same in both roles), and
+           x = where(take, x_B, x_A) before the update, so iteration 2 and
+           its dissipation see the stitched field (pallas_sweep_nl.py:
+           519-535)
   update   out = where(cls != 0, x, out_prev)
            tn = where(INTERIOR, (temp + out)/2, temp)
            gmerge: tn = where(INTERIOR, (tn + out)/2, tn)
@@ -36,20 +46,22 @@ import torch
 from ..core.types import BCtype
 from ..kernels.build import LaunchCounter
 from .masks import BC0, BC1, INTERIOR
+from .pcr import pcr_solve
 from .stencil import shift
 from .sweep_common import build_abc
 from .tridiag_rows import tridiag_rows_ref
 
 _F = np.float32
 
-launches = LaunchCounter()     # one per local iteration
+launches = LaunchCounter()        # one per local iteration, dual-free
+dual_launches = LaunchCounter()   # one per local iteration with flags
 
 
 def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
-                 nscal=8, ndim=3):
+                 nscal=8, ndim=3, flags=None):
     """Validate one iteration's operands, ``ndim``-D fields of ndim + 1
-    variables (3D: u, v, w, T; 2D: u, v, T); returns ``scal`` as
-    float32."""
+    variables (3D: u, v, w, T; 2D: u, v, T) and the optional dual
+    ``flags``; returns ``scal`` as float32."""
     if axis not in range(ndim):
         raise ValueError(f"axis must be in 0..{ndim - 1}, got {axis}")
     if cls.dim() != ndim:
@@ -63,7 +75,9 @@ def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
             ("out_prev4", out_prev4, torch.float32, shape4),
             ("cls", cls, torch.int8, shape4[1:]),
             ("bcv", bcv, torch.int8, shape4[1:]),
-            ("bct", bct, torch.int8, shape4[1:])):
+            ("bct", bct, torch.int8, shape4[1:])) + (
+            () if flags is None else (("flags", flags, torch.int8,
+                                       shape4[1:]),)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, temp4 on {dev}")
         if t.dtype != dtype:
@@ -80,44 +94,55 @@ def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
 
 
 def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
-               exact: bool, gmerge: bool):
+               exact: bool, gmerge: bool, flags=None):
     """Two local iterations of direction ``axis``; returns (out4, tn4).
 
-    ``scal``: the 8 float32 scalars of ``models/adi3d._nl_scal``."""
-    s = check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis)
+    ``scal``: the 8 float32 scalars of ``models/adi3d._nl_scal``;
+    ``flags``: the direction's dual plane (``models/common3d``), or None
+    on dual-free lines."""
+    s = check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
+                     flags=flags)
     if temp4.device.type == "cpu":
         return pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s, axis,
-                              exact, gmerge)
+                              exact, gmerge, flags)
     if temp4.device.type != "cuda":
         raise RuntimeError(f"pair_sweep has no kernel for {temp4.device}")
-    scratch = new_scratch(4, cls, axis)    # both launches (same stream)
+    counter = launches if flags is None else dual_launches
+    # both launches share the scratch (same stream)
+    scratch = new_scratch(4, cls, axis, flags is not None)
     out1, tn1 = launch_iteration(temp4, cls, bcv, bct, rhs4, out_prev4,
-                                 None, scratch, s, axis, exact, False)
-    launches.count += 1
+                                 None, scratch, s, axis, exact, False,
+                                 flags=flags)
+    counter.count += 1
     out4, tn4 = launch_iteration(tn1, cls, bcv, bct, rhs4, out1, None,
-                                 scratch, s, axis, exact, gmerge)
-    launches.count += 1
+                                 scratch, s, axis, exact, gmerge,
+                                 flags=flags)
+    counter.count += 1
     return out4, tn4
 
 
-def new_scratch(nvars, cls, axis):
+def new_scratch(nvars, cls, axis, dual=False):
     """The kernel's Thomas scratch for ``nvars`` variables swept along
     ``axis`` of ``cls``: c' of the velocity rows, c' of T's rows and d' of
-    each variable, (nvars + 2, n, lines) float32."""
+    each variable, (nvars + 2, n, lines) float32; twice that with duals
+    (pass B's planes after pass A's)."""
     n = cls.shape[axis]
-    return torch.empty((nvars + 2, n, cls.numel() // n), dtype=torch.float32,
+    planes = (nvars + 2) * (2 if dual else 1)
+    return torch.empty((planes, n, cls.numel() // n), dtype=torch.float32,
                        device=cls.device)
 
 
 def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
-                     axis, exact, gmerge, axis_var=None, first=False):
+                     axis, exact, gmerge, axis_var=None, first=False,
+                     flags=None):
     """One launch of ``pair_sweep.cu``'s iteration kernel: the pair
-    sweep's (``forcing`` None: dissipation in-kernel, 8 scalars) or the
-    stream sweep's (``forcing`` given, 5 scalars, no gmerge).  Fields are
-    (nvars, nx, ny, nz), masks (nx, ny, nz); ``axis`` is the sweep axis of
-    that shape.  Three variables (u, v, T) on the view (1, nx, ny) are the
-    2D stream mode (the 2D rows and the ``merge2d`` update with ``first``),
-    which names the advecting velocity ``axis_var``."""
+    sweep's (``forcing`` None: dissipation in-kernel, 8 scalars, the dual
+    chain where ``flags`` is given) or the stream sweep's (``forcing``
+    given, 5 scalars, no gmerge, no duals).  Fields are (nvars, nx, ny,
+    nz), masks (nx, ny, nz); ``axis`` is the sweep axis of that shape.
+    Three variables (u, v, T) on the view (1, nx, ny) are the 2D stream
+    mode (the 2D rows and the ``merge2d`` update with ``first``), which
+    names the advecting velocity ``axis_var``."""
     from ..kernels.build import load_library
     lib = load_library().lib
     out4 = torch.empty_like(temp4)
@@ -130,7 +155,8 @@ def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
         outs = (out4.data_ptr(), tn4.data_ptr(), scratch.data_ptr())
         if forcing is None:
             err = lib.cmcfs_pair_sweep_iter(
-                *ptrs, *outs, nx, ny, nz, axis, int(exact), int(gmerge),
+                *ptrs, None if flags is None else flags.data_ptr(), *outs,
+                nx, ny, nz, axis, int(exact), int(gmerge),
                 *(float(x) for x in s), stream)
         else:
             err = lib.cmcfs_stream_sweep_iter(
@@ -168,20 +194,28 @@ def _forcing(temp4, axis, s):
     return s[5] * (diss + go1 * h1 + go2 * h2)
 
 
+def _solve(cls, free_v, free_t, adv2h, d, s, axis, exact, pcr):
+    """x of the four systems on the rows of ``cls``: u, v and w share the
+    velocity rows, T has its own; Thomas, or PCR where ``pcr``."""
+    rows_v = build_abc(cls, free_v, adv2h, s[0], s[2] + _F(2.0) * s[0])
+    rows_t = build_abc(cls, free_t, adv2h, s[1], s[2] + _F(2.0) * s[1])
+    if pcr:
+        return torch.cat((pcr_solve(*rows_v, d[:3], axis, exact),
+                          pcr_solve(*rows_t, d[3], axis, exact)[None]))
+    a, b, c = (torch.stack((rv, rv, rv, rt)) for rv, rt in zip(rows_v, rows_t))
+    return tridiag_rows_ref(a, b, c, d, axis=axis + 1, exact=exact)
+
+
 def iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge,
-                  forcing=None):
+                  forcing=None, flags=None, pcr=False):
     """One local iteration, plain PyTorch; returns (out4, tn4).  The T
     equation's forcing is t_phi*diss_axis(temp) from ``s`` unless the
-    caller passes ``forcing`` (the stream sweep)."""
-    v_vis_h2, t_vis_h2, inv3dt, inv2h, v_T = s[:5]
+    caller passes ``forcing`` (the stream sweep); ``flags`` adds pass B and
+    the stitch; ``pcr`` solves by cyclic reduction."""
+    inv3dt, inv2h, v_T = s[2:5]
     adv2h = temp4[axis] * inv2h
     free_v = bcv == BCtype.FREE
     free_t = bct == BCtype.FREE
-    rows_v = build_abc(cls, free_v, adv2h, v_vis_h2,
-                       inv3dt + _F(2.0) * v_vis_h2)
-    rows_t = build_abc(cls, free_t, adv2h, t_vis_h2,
-                       inv3dt + _F(2.0) * t_vis_h2)
-    a, b, c = (torch.stack((rv, rv, rv, rt)) for rv, rt in zip(rows_v, rows_t))
 
     d_int = rhs4 * inv3dt
     d_int[axis] = d_int[axis] - v_T * _dd(temp4[3], inv2h, axis)
@@ -192,7 +226,11 @@ def iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge,
     d = torch.where(interior, d_int,
                     torch.where((cls == BC0) | (cls == BC1),
                                 torch.where(free4, 0.0, temp4), 0.0))
-    x = tridiag_rows_ref(a, b, c, d, axis=axis + 1, exact=exact)
+    x = _solve(cls, free_v, free_t, adv2h, d, s, axis, exact, pcr)
+    if flags is not None:
+        cls_b = torch.where((flags & 1) != 0, BC0, cls).to(torch.int8)
+        x_b = _solve(cls_b, free_v, free_t, adv2h, d, s, axis, exact, pcr)
+        x = torch.where((flags & 2) != 0, x_b, x)
     out = torch.where(cls != 0, x, op4)
     tn = torch.where(interior, (temp4 + out) * 0.5, temp4)
     if gmerge:
@@ -201,10 +239,10 @@ def iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge,
 
 
 def pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
-                   exact: bool, gmerge: bool):
+                   exact: bool, gmerge: bool, flags=None, pcr=False):
     """Plain PyTorch pair sweep on any device; returns (out4, tn4)."""
     s = np.asarray(scal, dtype=np.float32)
     out1, tn1 = iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s,
-                              axis, exact, False)
+                              axis, exact, False, flags=flags, pcr=pcr)
     return iteration_ref(tn1, cls, bcv, bct, rhs4, out1, s, axis, exact,
-                         gmerge)
+                         gmerge, flags=flags, pcr=pcr)

@@ -2,8 +2,9 @@
 
 Port of ``cmcfs_tpu/ops/sweep_common.py``: ``build_abc``/``build_a`` with
 the 3D boundary rows and the 2D (``bc2d``) ones, and the packed-mask
-encoding.  The dual encodings are not ported (the port keeps pass B as
-its own class array, ``models/common3d.GridArrays3D.cls_b``).
+encoding.  The dual encoding is the pair kernels' own int8 plane
+(``models/common3d.dual_flags``); pass B's classes are their own array,
+``models/common3d.GridArrays3D.cls_b``.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """Where a 3D ADI step's device time goes, by kernel, on one GPU.
 
     python -m cmcfs_tpu_torch.profile3d [--dx 0.00409] [--num-local 2]
-        [--backend auto] [--steps 3] [--inexact]
+        [--backend auto] [--steps 3] [--inexact] [--baffle N]
 
 Builds the extruded bench box (``scripts/gen_box_case.gen``; dx 0.00409
 is 256^3, 0.0027267 is ``bench --case 3d384``'s 383^3) with num_global=4,
+or with ``--baffle N`` the N^3 lid cavity with the FREE baffle
+(``geom.baffle``: X on the pair kernel's dual form; normalized parameters
+Re 200, Pr 0.72, lambda 1.4, dt 0.01, as ``chip_smoke.py`` runs it),
 runs one warm-up step, then profiles ``--steps`` steps with
 ``torch.profiler`` and prints: the dispatch, ms/step (host clock, device
 synchronised), the device time of each kernel (total, launches, share),
@@ -58,6 +61,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--inexact", action="store_true",
                     help="reciprocal Thomas (exact=False)")
+    ap.add_argument("--baffle", type=int, default=0,
+                    help="the N^3 lid cavity with the FREE baffle")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile3d needs a CUDA device", file=sys.stderr)
@@ -66,22 +71,31 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     from scripts.gen_box_case import gen
 
-    work = tempfile.mkdtemp(prefix="cmcfs_profile_")
-    data, cfgp = gen(work, dx=args.dx, time_steps=4, num_global=4,
-                     num_local=args.num_local)
-    cfg, params, grid = cli3d.load_case(data, cfgp)
+    num_global, num_local = 4, args.num_local
     solver = AdiSolver3D(backend=args.backend, exact=not args.inexact)
-    solver.init(grid, params)
-    dt = grid.cycle_len / (grid.num_frames * cfg.time_steps)
-    rep = solver.dispatch_report(cfg.num_local)
-    print(f"grid {grid.dimx}x{grid.dimy}x{grid.dimz}, ng={cfg.num_global} "
-          f"nl={cfg.num_local}, exact={solver.exact}; dispatch: "
-          f"backend={rep['backend']} pad={rep['pad']} dirs={rep['dirs']}")
+    if args.baffle:
+        from .core.params import FluidParams
+        from .geom.baffle import free_baffled
+        grid = free_baffled(args.baffle, args.baffle, args.baffle)
+        solver.init(grid, FluidParams.normalized(200.0, 0.72, 1.4))
+        dt = 0.01
+    else:
+        work = tempfile.mkdtemp(prefix="cmcfs_profile_")
+        data, cfgp = gen(work, dx=args.dx, time_steps=4,
+                         num_global=num_global, num_local=num_local)
+        cfg, params, grid = cli3d.load_case(data, cfgp)
+        solver.init(grid, params)
+        dt = grid.cycle_len / (grid.num_frames * cfg.time_steps)
+    rep = solver.dispatch_report(num_local)
+    print(f"grid {grid.dimx}x{grid.dimy}x{grid.dimz}, ng={num_global} "
+          f"nl={num_local}, exact={solver.exact}; dispatch: "
+          f"backend={rep['backend']} pad={rep['pad']} pcr={rep['pcr']} "
+          f"dirs={rep['dirs']}; dual planes "
+          f"{[f is not None for f in solver.ga.dual_flags]}")
 
     def step():
         solver.update_boundaries()
-        solver.time_step(dt, cfg.num_global, cfg.num_local,
-                         compute_error=False)
+        solver.time_step(dt, num_global, num_local, compute_error=False)
 
     return profile_steps(step, args.steps)
 
@@ -89,7 +103,7 @@ def main(argv=None) -> int:
 # the port's own kernels (kernels/csrc/*.cu); every other device kernel is
 # PyTorch's (the RHS build, folds, merges and copies around them)
 PORT_KERNELS = ("pair_sweep_iter_kernel", "line_sweep_kernel",
-                "tridiag_rows_kernel")
+                "tridiag_rows_kernel", "pcr_sweep_iter_kernel")
 
 
 def profile_steps(step, steps: int) -> int:

@@ -65,7 +65,7 @@ def test_dispatch_report_auto_is_fused_nl():
     384^3 goes to the line sweep on all three directions."""
     rep = tadi.dispatch_report((384, 384, 384), (False,) * 3, "auto", 2,
                                (True, True, True))
-    assert rep == {"backend": "fused_nl", "pad": None,
+    assert rep == {"backend": "fused_nl", "pad": None, "pcr": False,
                    "dirs": {"X": "fallback", "Y": "fallback",
                             "Z": "fallback"}}
     rep = tadi.dispatch_report((250, 250, 250), (False,) * 3, "auto", 2,

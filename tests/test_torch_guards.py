@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: it never loads JAX, never picks a device or
-a path on its own, and refuses what it has not ported."""
+a path on its own, and refuses what it has not ported; where a refusal
+was lifted, the case now holds the port to cmcfs_tpu."""
 import os
 import subprocess
 import sys
@@ -14,7 +15,8 @@ from cmcfs_tpu.geom.synthetic import lid_cavity_3d
 from cmcfs_tpu_torch import cli3d
 from cmcfs_tpu_torch.device import get_device
 from cmcfs_tpu_torch.models import adi3d
-from cmcfs_tpu_torch.models.common3d import grid_arrays, merge_ok
+from cmcfs_tpu_torch.models.common3d import (grid_arrays, init_state,
+                                             merge_ok)
 from cmcfs_tpu_torch.models.solver3d import AdiSolver3D, make_solver_3d
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,38 +113,65 @@ def _box():
 @pytest.mark.parametrize("case", ["pcr", "fused_pcr", "fused_pcr_bf16",
                                   "fused_bf16"])
 def test_unported_dispatch_raises(case):
-    """Backends whose kernels are not ported raise naming their ROADMAP
-    item; none falls through to another path."""
+    """The bf16 backends, whose payload mode is not ported, raise naming
+    ROADMAP B2 and fall through to no other path.  ``pcr`` and
+    ``fused_pcr`` are ported: one step of each on the lid cavity matches
+    cmcfs_tpu's exact-order ``scan`` step within 5e-6, the bound
+    test_backends3d.py holds cmcfs_tpu's own PCR steps to."""
     grid, ga = _box()
     pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
                            grid.dx, grid.dy, grid.dz)
+    if case in ("pcr", "fused_pcr"):
+        _pcr_step_matches_scan(grid, ga, pa, case)
+        return
     cur = tuple(torch.zeros(ga.types.shape) for _ in range(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
         adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa, backend=case,
                               merge_ok=(True, True, True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
         AdiSolver3D(backend=case, device="cpu")
+
+
+def _pcr_step_matches_scan(grid, ga, pa, backend):
+    import jax.numpy as jnp
+    from cmcfs_tpu.models import adi3d as jadi
+    from cmcfs_tpu.models import common3d as jc
+    jga, jcur = jc.grid_arrays(grid), jc.init_state(grid)
+    jpa = jadi.ParamsArgs3D(*(jnp.float32(x) for x in pa))
+    want, _ = jadi.adi_timestep_3d(jcur, jcur, jga, jnp.float32(0.01), 1, 2,
+                                   jpa, backend="scan")
+    cur = init_state(grid, "cpu")
+    got, _ = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa,
+                                   backend=backend, merge_ok=merge_ok(ga))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=5e-6)
 
 
 def test_dispatch_report_names_paths():
     rep = adi3d.dispatch_report((64, 64, 64), (False, False, False), "auto",
                                 3, (True, False, True))
-    assert rep == {"backend": "fused_nl", "pad": None,
+    assert rep == {"backend": "fused_nl", "pad": None, "pcr": False,
                    "dirs": {"X": "pair+stream", "Y": "fallback",
                             "Z": "pair+stream"}}
 
 
 @pytest.mark.parametrize("name", ["Explicit", "Stable"])
 def test_unported_solvers_raise(name):
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A4"):
         make_solver_3d(name, device="cpu")
 
 
 def test_free_dual_grid_raises():
     """A FREE-bc baffle with a hole leaves dual endpoints on X lines:
     ``grid_arrays`` keeps cmcfs_tpu's pass B (cls_b/take_b, inert duals
-    elided on the other axes), and the pair sweep on those lines, which
-    needs the pair kernel's second chain, raises naming ROADMAP B1."""
+    elided on the other axes).  X dispatches ``pair`` at num_local 2; it
+    used to raise, and now runs the pair kernel's second chain (its plain
+    version here) and matches cmcfs_tpu's step on the same grid (the
+    exact-order ``scan`` path's two-pass stitch) within 1e-5 *
+    max|state|, test_torch_dispatch3d.py's bound."""
+    import jax.numpy as jnp
+    from cmcfs_tpu.models import adi3d as jadi
     from cmcfs_tpu.models import common3d as jc
     grid = lid_cavity_3d(20, 12, 12)
     mid = 10
@@ -162,9 +191,16 @@ def test_free_dual_grid_raises():
                 assert np.array_equal(mine.numpy(), np.asarray(ref))
     pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
                            grid.dx, grid.dy, grid.dz)
-    cur = tuple(torch.zeros(ga.types.shape) for _ in range(4))
     mok = merge_ok(ga)
     assert adi3d.dispatch_report((20, 12, 12), (True, False, False), "auto",
                                  2, mok)["dirs"]["X"] == "pair"
-    with pytest.raises(NotImplementedError, match="B1 step 3"):
-        adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa, merge_ok=mok)
+    jcur = jc.init_state(grid)
+    jpa = jadi.ParamsArgs3D(*(jnp.float32(x) for x in pa))
+    want, _ = jadi.adi_timestep_3d(jcur, jcur, jga, jnp.float32(0.01), 1, 2,
+                                   jpa, backend="scan")
+    cur = init_state(grid, "cpu")
+    got, _ = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa, merge_ok=mok)
+    want = [np.asarray(w) for w in want]
+    bound = 1e-5 * max(float(np.abs(w).max()) for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=bound)

@@ -1,7 +1,7 @@
 """The CUDA kernels (pair, stream and line sweeps, in their 3D and 2D
-modes, the tridiag_rows Thomas solve, and the five measurement probes of
-cmcfs_tpu_torch/probes) against their plain PyTorch versions, on the
-card.
+modes, the pair sweep's dual form, the PCR pair sweep, the tridiag_rows
+Thomas solve, and the five measurement probes of cmcfs_tpu_torch/probes)
+against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips otherwise.  This file imports no JAX, so it also runs on
@@ -17,7 +17,10 @@ bit, but for the variants that measure contraction (1e-6 relative) and
 cyclic reduction against Thomas (1e-5).  So are the pair, stream, line
 and row kernels on the edges of their tiles (``*_edges_bitwise``: ragged
 chunks and blocks, grid-edge lines, random classes or whole segments;
-the line sweep's alternative Z tiles; the row kernel's k-form).
+the line sweep's alternative Z tiles; the row kernel's k-form), the dual
+pair kernel (the FREE baffle turned onto each axis, and random classes and
+flags on the tiles' edges) and the PCR kernel (n = 40, 200, 255, 256 on
+each axis, with and without duals).
 """
 import numpy as np
 import pytest
@@ -25,13 +28,17 @@ import torch
 
 from cmcfs_tpu_torch.core.params import FluidParams
 from cmcfs_tpu_torch.core.types import BCtype, NodeType
+from cmcfs_tpu_torch.geom.baffle import free_baffled
 from cmcfs_tpu_torch.geom.synthetic import lid_cavity_2d, lid_cavity_3d
 from cmcfs_tpu_torch.models import adi2d, adi3d
 from cmcfs_tpu_torch.models import common2d
-from cmcfs_tpu_torch.models.common3d import (grid_arrays, init_state,
-                                             merge_ok, update_boundaries)
+from cmcfs_tpu_torch.models.common3d import (dual_flags, grid_arrays,
+                                             init_state, merge_ok,
+                                             update_boundaries)
 from cmcfs_tpu_torch.ops import line_sweep as ls
+from cmcfs_tpu_torch.ops import masks
 from cmcfs_tpu_torch.ops import pair_sweep as ps
+from cmcfs_tpu_torch.ops import pcr_sweep as pcs
 from cmcfs_tpu_torch.ops import stream_sweep as ss
 from cmcfs_tpu_torch.ops import tridiag_rows as tr
 from cmcfs_tpu_torch.ops.sweep_common import pack_masks
@@ -173,7 +180,10 @@ def test_stream_kernel_matches_plain(axis, exact):
 @pytest.mark.parametrize("backend, num_local, baffle",
                          [("fused_dma", 2, False), ("fused", 2, False),
                           ("fused_full", 2, False), ("auto", 3, False),
-                          ("auto", 1, False), ("auto", 3, True)])
+                          ("auto", 1, False), ("auto", 3, True),
+                          ("auto", 2, True), ("fused_pcr", 2, False),
+                          ("fused_pcr", 2, True), ("fused_pcr", 3, False),
+                          ("pcr", 2, False)])
 def test_step_paths_on_gpu_match_cpu(backend, num_local, baffle):
     """One whole ADI step on each path, on the card (kernels) against the
     same step on the CPU (plain versions)."""
@@ -675,3 +685,162 @@ def test_probe_diss_matches_plain(shape, rounded):
     want = pdb.diss_ref(u, v, w, scal)
     tol = 0.0 if rounded else 1e-6 * max(1.0, float(want.abs().max()))
     assert _max_err(got, want) <= tol
+
+
+def _rotated_baffle(axis, seed):
+    """The FREE baffle (``geom.baffle.free_baffled`` at 24 x 20 x 18) with
+    its wall turned normal to ``axis``: its dual plane along ``axis`` and
+    noisy fields, on the card."""
+    grid = free_baffled(24, 20, 18)
+    perm = ((0, 1, 2), (1, 0, 2), (2, 1, 0))[axis]
+
+    def turn(a):
+        return np.ascontiguousarray(np.transpose(np.asarray(a), perm))
+
+    types, bcv, bct = (turn(a) for a in (grid.types, grid.bc_vel,
+                                         grid.bc_temp))
+    lc = masks.line_class_3d(types, axis)
+    assert lc.cls_b is not None
+
+    def t(a, dtype=torch.int8):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device="cuda")
+
+    cls = t(lc.cls_a)
+    flags = dual_flags(cls, t(lc.cls_b), t(lc.take_b, torch.bool))
+    rng = np.random.default_rng(seed)
+    fields = [t(0.3 * rng.standard_normal((4,) + types.shape), torch.float32)
+              for _ in range(3)]
+    return (cls, t(bcv), t(bct)), fields, flags
+
+
+def _edge_flags(rng, cls):
+    """Random dual planes on random classes: the BC0 start role in pass B
+    (bit 0) on some BC1 cells, the take bit (1) anywhere."""
+    c = cls.cpu().numpy()
+    dual = (c == 2) & (rng.random(c.shape) < 0.5)
+    take = rng.random(c.shape) < 0.3
+    return torch.tensor(dual + 2 * take, dtype=torch.int8, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gmerge", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_pair_kernel_dual_bitwise(axis, exact, gmerge):
+    """The dual pair kernel against its plain version on the FREE baffle
+    turned onto each axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (cls, bcv, bct), (temp4, rhs4, op4), flags = _rotated_baffle(axis,
+                                                                 3 + axis)
+    args = (temp4, cls, bcv, bct, rhs4, op4, _PAIR_SCAL, axis, exact, gmerge,
+            flags)
+    before = (ps.launches.count, ps.dual_launches.count)
+    out_k, tn_k = ps.pair_sweep(*args)
+    assert (ps.launches.count, ps.dual_launches.count) == (before[0],
+                                                           before[1] + 2)
+    for g, w in zip((out_k, tn_k), ps.pair_sweep_ref(*args)):
+        assert _max_err(g, w) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _EDGE_3D)
+def test_pair_kernel_dual_edges_bitwise(shape, axis, exact):
+    """Ragged chunks and blocks of the dual instantiations' tiles (X/Y 64 x
+    2, Z 64 x 8), random classes and dual planes, gmerge on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 7)
+    (cls, bcv, bct), (temp4, rhs4, op4), _ = _edge_fields(rng, shape, 4)
+    args = (temp4, cls, bcv, bct, rhs4, op4, _PAIR_SCAL, axis, exact, True,
+            _edge_flags(rng, cls))
+    before = ps.dual_launches.count
+    out_k, tn_k = ps.pair_sweep(*args)
+    assert ps.dual_launches.count == before + 2
+    for g, w in zip((out_k, tn_k), ps.pair_sweep_ref(*args)):
+        assert _max_err(g, w) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("n", [40, 200, 255, 256])
+def test_pcr_kernel_bitwise(n, axis, dual, exact):
+    """The PCR kernel against its plain version: lines of n cells (the
+    non-powers of two 40, 200, 255 and the cap 256) along each axis, 55
+    lines in blocks of 8 (a ragged last block), random classes, with and
+    without random dual planes; gmerge on X."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape = [5, 11]
+    shape.insert(axis, n)
+    rng = np.random.default_rng(n + 10 * axis + 100 * dual)
+    (cls, bcv, bct), (temp4, rhs4, op4), _ = _edge_fields(rng, tuple(shape),
+                                                          4)
+    args = (temp4, cls, bcv, bct, rhs4, op4, _PAIR_SCAL, axis, exact,
+            axis == 0, _edge_flags(rng, cls) if dual else None)
+    before = pcs.launches.count
+    out_k, tn_k = pcs.pcr_sweep(*args)
+    assert pcs.launches.count == before + 2
+    for g, w in zip((out_k, tn_k), pcs.pcr_sweep_ref(*args)):
+        assert _max_err(g, w) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_pcr_kernel_baffle_bitwise(axis, exact):
+    """PCR with the dual chains on the FREE baffle turned onto each axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (cls, bcv, bct), (temp4, rhs4, op4), flags = _rotated_baffle(axis,
+                                                                 9 + axis)
+    args = (temp4, cls, bcv, bct, rhs4, op4, _PAIR_SCAL, axis, exact, True,
+            flags)
+    out_k, tn_k = pcs.pcr_sweep(*args)
+    for g, w in zip((out_k, tn_k), pcs.pcr_sweep_ref(*args)):
+        assert _max_err(g, w) == 0.0
+
+
+def _from_rest(n=96):
+    """The FREE baffle at n^3 from rest (zero velocity on its walls), 0.01
+    noise on IN cells from a CUDA generator, on the card."""
+    grid = free_baffled(n, n, n)
+    ga = grid_arrays(grid, "cuda")
+    pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
+                           grid.dx, grid.dy, grid.dz)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = torch.stack(tuple(update_boundaries(init_state(grid, "cuda"),
+                                               ga)))
+    is_in = ga.types == NodeType.IN
+
+    def noisy():
+        return torch.where(is_in, base + 0.01 * torch.randn(
+            base.shape, generator=gen, device="cuda"), base)
+
+    return ga, pa, noisy(), noisy(), noisy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["pair", "pcr"])
+@pytest.mark.parametrize("axis, exact", [(0, True), (1, False), (1, True),
+                                         (2, False)])
+def test_gmerge_subnormal_bitwise(kernel, axis, exact):
+    """The gmerge fold rounds (tn + out) before halving it.  Contracted
+    into an FMA with the NODE_IN merge's half, it parted both kernels from
+    their plain versions by 1.4e-45 where that half is subnormal: 368 to
+    33,488 cells of this input (96^3 from rest) for the pair kernel, more
+    for PCR, whose decaying coefficients make subnormals of their own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ga, pa, temp4, rhs4, op4 = _from_rest()
+    flags = ga.dual_flags[axis]
+    run, ref = ((ps.pair_sweep, ps.pair_sweep_ref) if kernel == "pair"
+                else (pcs.pcr_sweep, pcs.pcr_sweep_ref))
+    args = (temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp, rhs4, op4,
+            adi3d._nl_scal(axis, pa, 0.01), axis, exact, True, flags)
+    for g, w in zip(run(*args), ref(*args)):
+        assert _max_err(g, w) == 0.0

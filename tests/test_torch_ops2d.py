@@ -213,7 +213,12 @@ def test_tridiag_rows_no_fallback_off_cpu():
         tr.tridiag_rows(*meta)
 
 
-def test_pcr_backend_raises():
-    rows = [torch.tensor(t) for t in _rows((9, 7), seed=3)]
-    with pytest.raises(NotImplementedError, match="B1 step 5"):
-        ttd.tridiag_solve(*rows, backend="pcr")
+@pytest.mark.parametrize("exact", [True, False])
+def test_pcr_backend_raises(exact):
+    """Backend ``pcr`` used to raise; it is ported (``ops/pcr.py``, no
+    kernel launched) and matches cmcfs_tpu's ``_solve_leading_axis_pcr``
+    within the tolerance of this module's Thomas solves."""
+    rows = _rows((9, 7), seed=3)
+    want = jtd._solve_leading_axis_pcr(*(jnp.asarray(t) for t in rows),
+                                       exact)
+    _close(_port("pcr", rows, 0, exact), want)
