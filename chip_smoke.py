@@ -79,7 +79,24 @@ and nvcc.  Phases, each of which raises on failure:
    Thomas: not bit for bit, held to the same bound); one step at nl=3
    (``pair+stream``: the trailing iteration on the stream sweep); one
    ``fused_pcr`` step on the baffle grid (PCR with the dual chains)
-   against its ``auto`` step.
+   against its ``auto`` step;
+18. bf16 payloads: every bf16 kernel mode against its plain version bit
+   for bit, with CUDA-event times of both, both ``exact`` modes (the pair,
+   PCR, stream and line sweeps on the 256^3 box, X / Y / Z, the line
+   sweep's Z at each tile; the dual pair on the baffle turned onto each
+   axis and PCR with its duals on X; the 2D stream at 1024^2, the 2D line
+   at 2048^2 and on the 1041^2 box; the line sweep at 383^3); then
+   ``run_case`` on the 256^3 box with ``fused_bf16`` (all ``pair``, 24
+   bf16 pair launches a step) and with ``fused_pcr_bf16`` (24 bf16 PCR
+   launches), ms/step in both modes, a whole step kernels against plain
+   versions bit for bit and against its float32 twin (``fused_nl``,
+   ``fused_pcr``) within BF16_TOL; one ``fused_bf16`` step at nl=3 (the
+   bf16 stream iteration), one on the baffle (the bf16 dual pair), the
+   383^3 box on ``fused_bf16`` (the bf16 line sweep, ms/step, bit for
+   bit, against ``fused_nl``), 2d2048 and 2d1024 on ``fused_bf16`` (the
+   2D line sweep) and the 2D CLI box on it; and ``fused_bf16`` beside
+   ``fused_nl`` for 100 steps on the box at about 128^3, max|du|/max|u|
+   at steps 10, 50 and 100.
 
 Every kernel's launch counter is set to 0 just before a path is driven
 and read just after; launches made to compare a kernel with its plain
@@ -130,6 +147,12 @@ BAFFLE_DT = 0.01
 # backends' steps against the pair step too (the same scheme in another
 # order of operations).
 TOL = 1e-5
+# A bf16 backend's step against its float32 twin's: |delta| <= BF16_TOL *
+# max(1, max|field|) per variable, the bound cmcfs_tpu's own
+# test_bf16_storage_close_to_f32 and test_fused_pcr_bf16_close_to_f32 hold
+# its bf16 steps to (tests/test_backends3d.py:97-150).  Each bf16 kernel
+# and step against its plain version: bit for bit.
+BF16_TOL = 0.02
 # bound_ms: the least time the card could take, from the published H100
 # SXM peaks (NVIDIA's data sheet): 3.35 TB/s device memory, 67 TFLOP/s
 # float32 outside the tensor cores
@@ -197,6 +220,46 @@ KERNELS = {
     "tridiag_rows_2d": (
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
         20, 8),
+    # the bf16 payload mode of each: rhs, out_prev (d) in and out, tn (x)
+    # out in bf16, temp, adv, masks and forcing as above; the float32 twin's
+    # operations (the conversions aside)
+    "pair_sweep_bf16": (
+        CSRC + "pair_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_nl.py:1068 (bf16: :172, :225-271)",
+        # temp4 16, masks 3, rhs4 8, out_prev4 8, out4 8, tn4 8
+        16 + 3 + 8 + 8 + 8 + 8, 2 * 4 * 40),
+    "pair_sweep_dual_bf16": (
+        CSRC + "pair_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_nl.py:1068 (has_dual, bf16)",
+        16 + 3 + 8 + 8 + 8 + 8 + 1, 2 * (4 * 40 + 30)),
+    "pcr_sweep_bf16": (
+        CSRC + "pcr_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_nl.py:1068 (pcr, bf16)",
+        16 + 3 + 8 + 8 + 8 + 8, 2 * (43 + 32 * 8)),
+    "stream_sweep_bf16": (
+        CSRC + "stream_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_stream.py:400 (bf16: :28, :93-110, "
+        ":447-452)",
+        # temp4 16, masks 3, forcing 4, rhs4 8, out_prev4 8, out4 8, tn4 8
+        16 + 3 + 4 + 8 + 8 + 8 + 8, 4 * 30),
+    "stream_sweep_2d_bf16": (
+        CSRC + "stream_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_stream.py:400 (merge2d, bf16)",
+        # temp3 12, cls and bct 2, forcing 4, rhs3 6, out_prev3 6, out3 6,
+        # tn3 6
+        12 + 2 + 4 + 6 + 6 + 6 + 6, 3 * 30),
+    "line_sweep_bf16": (
+        CSRC + "line_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_dma.py:214 (bf16: :38, :79-81, :263), "
+        "cmcfs_tpu/ops/pallas_sweep_long.py:293 (bf16: :310, :344-353)",
+        # adv 4, pk 1, d4 8, x4 8
+        4 + 1 + 8 + 8, 4 * 14),
+    "line_sweep_2d_bf16": (
+        CSRC + "line_sweep_bf16.cu",
+        "cmcfs_tpu/ops/pallas_sweep_dma.py:214, "
+        "cmcfs_tpu/ops/pallas_sweep_long.py:293 (t_var=2, bc2d, bf16)",
+        # adv 4, pk 1, d3 6, x3 6
+        4 + 1 + 6 + 6, 3 * 14),
 }
 # bytes a cell a call that each kernel's design moves by its source note's
 # count, printed beside the compulsory bytes above with the GB/s they give
@@ -228,6 +291,9 @@ PROBE_KERNELS = {
                            "rounded@256x256x256"),
 }
 PROBE_REPS = 3
+# phase 18's bf16 drift: steps of fused_bf16 beside fused_nl from the start
+DRIFT_STEPS = 100
+DRIFT_AT = (10, 50, 100)
 
 
 def fail(msg: str) -> None:
@@ -288,6 +354,21 @@ def check_close(what: str, a4, b4) -> float:
         fail(f"{what}: non-finite values")
     if any(e > b for e, b in zip(errs, bounds)):
         fail(f"{what}: max|delta| {errs} beyond bounds {bounds}")
+    return max(errs)
+
+
+def twin_err(what: str, bf4, f4) -> float:
+    """A bf16 backend's step against its float32 twin's from the same
+    state: fail unless finite and within BF16_TOL * max(1, max|field|)
+    per variable; returns the largest max|delta|."""
+    import torch
+    if not bool(torch.isfinite(bf4).all()):
+        fail(f"{what}: non-finite values")
+    errs = [float((a - b).abs().max()) for a, b in zip(bf4, f4)]
+    bounds = [BF16_TOL * max(1.0, float(b.abs().max())) for b in f4]
+    print(f"{what}: max|delta| per variable {errs}, bounds {bounds}")
+    if any(e > b for e, b in zip(errs, bounds)):
+        fail(f"{what}: max|delta| {errs} beyond {bounds}")
     return max(errs)
 
 
@@ -359,12 +440,20 @@ def main() -> int:
     from cmcfs_tpu_torch.ops import tridiag_rows as tr
     from cmcfs_tpu_torch.ops.stencil import div_error_3d
 
-    # the pair kernel's dual form counts its launches apart
+    # the pair kernel's dual form and every bf16 mode count their launches
+    # apart (the 3D and 2D modes of the line and stream sweeps share theirs)
+    def apart(counter):
+        return types.SimpleNamespace(launches=counter)
+
     counters = Counters(pair_sweep=ps, line_sweep=ls, stream_sweep=ss,
                         tridiag_rows=tr,
-                        pair_sweep_dual=types.SimpleNamespace(
-                            launches=ps.dual_launches),
-                        pcr_sweep=pcs)
+                        pair_sweep_dual=apart(ps.dual_launches),
+                        pcr_sweep=pcs,
+                        pair_sweep_bf16=apart(ps.bf16_launches),
+                        pair_sweep_dual_bf16=apart(ps.dual_bf16_launches),
+                        pcr_sweep_bf16=apart(pcs.bf16_launches),
+                        stream_sweep_bf16=apart(ss.bf16_launches),
+                        line_sweep_bf16=apart(ls.bf16_launches))
     rec = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
                "launches": 0, "max_abs_err": 0.0, "ms": None,
                "plain_ms": None, "bound_ms": None, "bound_by": None,
@@ -487,7 +576,8 @@ def main() -> int:
         nl = cli3d.Config.load(cfgp).num_local
         rep = solver.dispatch_report(nl)
         print(f"\ndispatch: backend={rep['backend']} pad={rep['pad']} "
-              f"pcr={rep['pcr']} dirs={rep['dirs']} (num_local={nl})")
+              f"pcr={rep['pcr']} bf16={rep['bf16']} dirs={rep['dirs']} "
+              f"(num_local={nl})")
         print(f"kernel launches over {steps} steps: {got} "
               f"(expected {want_launches})")
         if set(rep["dirs"].values()) != {want_dirs}:
@@ -532,13 +622,16 @@ def main() -> int:
                   f"steps ({smi})", flush=True)
         return out
 
-    def step_vs_plain(solver, dt, nl, kernel_mod, attr, plain):
-        """One whole step with the kernels against one with ``attr`` of
-        adi3d swapped for its plain version, same tensors."""
+    def step_vs_plain(solver, dt, nl, kernel_mod, attr, plain, twin=None):
+        """One whole step on the solver's backend with the kernels against
+        one with ``attr`` of adi3d swapped for its plain version, same
+        tensors; a bf16 backend's bit for bit, and against the step of its
+        float32 ``twin`` from the same state within BF16_TOL."""
         solver.update_boundaries()
         args = (solver.cur, solver.next, solver.ga, dt, NUM_GLOBAL, nl,
                 solver.pa)
-        kw = dict(exact=False, compute_error=False, merge_ok=solver.merge_ok)
+        kw = dict(exact=False, compute_error=False, merge_ok=solver.merge_ok,
+                  backend=solver.backend)
         new_k, _ = adi3d.adi_timestep_3d(*args, **kw)
         setattr(adi3d, attr, plain)
         try:
@@ -548,10 +641,17 @@ def main() -> int:
             plain_s = time.perf_counter() - t0
         finally:
             setattr(adi3d, attr, getattr(kernel_mod, attr))
-        err = check_close("whole step kernel vs plain", torch.stack(new_k),
-                          torch.stack(new_p))
+        new_k, new_p = torch.stack(new_k), torch.stack(new_p)
+        err = check_close("whole step kernel vs plain", new_k, new_p)
         print(f"whole step kernel vs plain: max|delta| {err:.3e}; plain "
               f"step {plain_s * 1e3:.1f} ms")
+        if solver.backend in adi3d.BF16_BACKENDS:
+            if not torch.equal(new_k, new_p):
+                fail(f"whole {solver.backend} step: kernels and plain "
+                     "versions not bit for bit")
+            ref = adi3d.adi_timestep_3d(*args, **dict(kw, backend=twin))[0]
+            twin_err(f"{solver.backend} step vs {twin} step", new_k,
+                     torch.stack(ref))
         return err
 
     per_step = NUM_GLOBAL * 3 * NUM_LOCAL
@@ -870,18 +970,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 11./12. 2D bench configs
-    def run_2d_config(n, want_path, steps):
-        """bench.py run_bench_2d's step loop at n^2 on ``fused_nl``."""
+    def run_2d_config(n, want_path, steps, backend="fused_nl"):
+        """bench.py run_bench_2d's step loop at n^2 on ``backend``; the
+        bf16 backend's launches count in the bf16 counters and its step is
+        held to the plain versions' bit for bit."""
         g = lid_cavity_2d(n, n, dx=0.001)
         ga2 = c2.grid_arrays(g, dev)
         so = adi2d.stream_ok_2d(ga2)
         pa2 = adi2d.make_params(params2, g.dx, g.dy, 1.0)
-        rep = adi2d.dispatch_report_2d((n, n), "fused_nl", so)
-        print(f"dispatch: backend=fused_nl stream_ok={so} dirs={rep}")
+        rep = adi2d.dispatch_report_2d((n, n), backend, so)
+        print(f"dispatch: backend={backend} stream_ok={so} dirs={rep}")
         if set(rep.values()) != {want_path}:
             fail(f"2D dispatch is not all {want_path}: {rep}")
+        bf16 = backend == "fused_bf16"
         kernel = {"stream": "stream_sweep", "line": "line_sweep"}[want_path]
-        kw2 = dict(backend="fused_nl", exact=False, stream_ok=so)
+        kernel += "_bf16" if bf16 else ""
+        kw2 = dict(backend=backend, exact=False, stream_ok=so)
         cur = c2.init_state(g, dev)
         cur, err, _ = adi2d.adi_timestep_2d(cur, ga2, DT2, 2, 1, pa2, **kw2)
         torch.cuda.synchronize()
@@ -925,10 +1029,17 @@ def main() -> int:
         if it_k != it_p:
             fail(f"whole 2D step: {it_k} global iterations with the kernel, "
                  f"{it_p} with the plain version")
-        e = check_close("whole 2D step kernel vs plain", torch.stack(new_k),
-                        torch.stack(new_p))
+        new_k, new_p = torch.stack(new_k), torch.stack(new_p)
+        e = check_close("whole 2D step kernel vs plain", new_k, new_p)
+        if bf16 and not torch.equal(new_k, new_p):
+            fail(f"whole 2D {backend} step: kernel and plain not bit for bit")
         print(f"whole step kernel vs plain: max|delta| {e:.3e}; plain step "
               f"{plain_s * 1e3:.1f} ms")
+        if bf16:
+            ref, _, _ = adi2d.adi_timestep_2d(cur, ga2, DT2, 2, 1, pa2,
+                                              **dict(kw2, backend="fused_dma"))
+            twin_err(f"2d{n} fused_bf16 vs fused_dma", new_k,
+                     torch.stack(ref))
         return got[kernel], wall / steps * 1e3, e
 
     phase(f"11. 2d1024: lid cavity 1024^2, fused_nl, ng=2 nl=1, "
@@ -1271,6 +1382,297 @@ def main() -> int:
     check_close("fused_pcr baffle step vs auto step", new4, b_ref4)
     del new4, b_ref4, bsolver, psolver
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 18. bf16
+    phase("18. bf16 payloads: every bf16 kernel mode against its plain "
+          "version bit for bit; the fused_bf16 and fused_pcr_bf16 slices; "
+          "bf16 steps against their float32 twins")
+    bf16_ms = {k: ([], []) for k in ("pair_sweep_bf16", "pair_sweep_dual_bf16",
+                                     "pcr_sweep_bf16", "stream_sweep_bf16",
+                                     "stream_sweep_2d_bf16", "line_sweep_bf16",
+                                     "line_sweep_2d_bf16")}
+
+    def bitwise(kernel, label, run, plain, keep=True, k_reps=5, p_reps=1):
+        """run() against plain() bit for bit (bf16 tensors, or tuples of
+        them), both timed in turns; the times go to the kernel's record
+        where ``keep``."""
+        outs_k, outs_p = run(), plain()
+        torch.cuda.synchronize()
+        if not isinstance(outs_k, tuple):
+            outs_k, outs_p = (outs_k,), (outs_p,)
+        for a, b in zip(outs_k, outs_p):
+            if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+                    or not bool(torch.isfinite(a.float()).all())
+                    or not torch.equal(a, b)):
+                fail(f"{kernel} {label}: the bf16 kernel and its plain "
+                     f"version are not bit for bit "
+                     f"({int((a.float() != b.float()).sum())} cells differ)")
+        tk, tp = in_turns(run, plain, k_reps, p_reps)
+        if keep:
+            bf16_ms[kernel][0].append(tk)
+            bf16_ms[kernel][1].append(tp)
+        print(f"{kernel:<22}{label:<26}{'0':>8}{tk:>11.3f}{tp:>10.2f}",
+              flush=True)
+
+    print(f"{'kernel':<22}{'case':<26}{'max|d|':>8}{'kernel ms':>11}"
+          f"{'plain ms':>10}")
+    ga = grid_arrays(grid, dev)
+    temp4, rhs4, op4 = noisy_state(ga, grid, gen_t)
+    rb, ob = rhs4.bfloat16(), op4.bfloat16()
+    for axis in range(3):
+        scal = adi3d._nl_scal(axis, pa, dt)
+        forcing = pa.t_phi * adi3d._DISS[axis](temp4[0], temp4[1], temp4[2],
+                                               pa.dx, pa.dy, pa.dz)
+        d4 = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga, pa,
+                                              scal[2]),
+                          ga.cls_a[axis]).bfloat16()
+        for exact in (True, False):
+            lab = f"256 {'XYZ'[axis]} exact={exact}"
+            args = (temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp, rb, ob,
+                    scal, axis, exact, axis == 0)
+            bitwise("pair_sweep_bf16", lab, lambda: ps.pair_sweep(*args),
+                    lambda: ps.pair_sweep_ref(*args))
+            bitwise("pcr_sweep_bf16", lab, lambda: pcs.pcr_sweep(*args),
+                    lambda: pcs.pcr_sweep_ref(*args))
+            sargs = (temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp, rb, ob,
+                     forcing, scal[:5], axis, exact)
+            bitwise("stream_sweep_bf16", lab,
+                    lambda: ss.stream_sweep(*sargs),
+                    lambda: ss.stream_sweep_ref(*sargs))
+            largs = (temp4[axis], ga.pk_a[axis], d4, scal[:4], axis, exact)
+            bitwise("line_sweep_bf16", lab, lambda: ls.line_sweep(*largs),
+                    lambda: ls.line_sweep_ref(*largs), keep=False, k_reps=3)
+            for r in (ls.Z_ROWS[1:] if axis == 2 else ()):
+                bitwise("line_sweep_bf16", lab + f" R={r}",
+                        lambda: ls._launch(*largs[:4], 2, 2, exact, r),
+                        lambda: ls.line_sweep_ref(*largs), keep=False,
+                        k_reps=3)
+        del forcing, d4
+    print(f"(pair and PCR times per pair = 2 launches; {smi})")
+    del temp4, rhs4, op4, rb, ob, ga
+    torch.cuda.empty_cache()
+    # the FREE baffle turned onto each axis: the dual pair; PCR with its
+    # duals on X
+    bsolver = make_solver_3d("ADI", backend="fused_bf16", device=dev)
+    bsolver.init(bgrid, FluidParams.normalized(200.0, 0.72, 1.4))
+    btemp4, brhs4, bop4 = noisy_state(bsolver.ga, bgrid, gen_t)
+    for axis in range(3):
+        temp4a, cls, bcv, bct, rhs4a, op4a, flags = baffle_on(
+            axis, btemp4, brhs4, bop4)
+        scal = adi3d._nl_scal(axis, bsolver.pa, BAFFLE_DT)
+        for exact in (True, False):
+            lab = f"baffle {'XYZ'[axis]} exact={exact}"
+            args = (temp4a, cls, bcv, bct, rhs4a.bfloat16(), op4a.bfloat16(),
+                    scal, axis, exact, True, flags)
+            bitwise("pair_sweep_dual_bf16", lab,
+                    lambda: ps.pair_sweep(*args),
+                    lambda: ps.pair_sweep_ref(*args))
+            if axis == 0:
+                bitwise("pcr_sweep_bf16", lab, lambda: pcs.pcr_sweep(*args),
+                        lambda: pcs.pcr_sweep_ref(*args), keep=False)
+        del temp4a, rhs4a, op4a, args
+    del btemp4, brhs4, bop4
+    # the 2D modes: the stream sweep at 1024^2, the line sweep at 2048^2
+    # and on the 1041^2 box
+    ga2, pa2, cur2, temp2, out2 = noisy_2d(lid_cavity_2d(1024, 1024,
+                                                         dx=0.001))
+    for axis in (0, 1):
+        t3, cl3, bct3, r3, o3, f3, s3 = adi2d.stream_args(
+            axis, cur2, temp2, out2, ga2, DT2, pa2)
+        for first in (True, False):
+            for exact in (True, False):
+                a2 = (t3, cl3, bct3, r3.bfloat16(), o3.bfloat16(), f3, s3,
+                      axis, exact, first)
+                bitwise("stream_sweep_2d_bf16",
+                        f"1024 {'XY'[axis]} exact={exact} first={first}",
+                        lambda: ss.stream_sweep_2d(*a2),
+                        lambda: ss.stream_sweep_2d_ref(*a2))
+    for label, grid2 in (("2048", lid_cavity_2d(2048, 2048, dx=0.001)),
+                         ("1041 box", box_grid)):
+        ga2, pa2, cur2, temp2, _ = noisy_2d(grid2)
+        for axis in (0, 1):
+            adv2, pk2, d3, s2 = adi2d.line_args(axis, cur2, temp2, ga2, DT2,
+                                                pa2)
+            for exact in (True, False):
+                a2 = (adv2, pk2, d3.bfloat16(), s2, axis, exact)
+                bitwise("line_sweep_2d_bf16",
+                        f"{label} {'XY'[axis]} exact={exact}",
+                        lambda: ls.line_sweep_2d(*a2),
+                        lambda: ls.line_sweep_2d_ref(*a2),
+                        keep=label == "2048")
+    del ga2, cur2, temp2, out2, a2, d3
+    torch.cuda.empty_cache()
+
+    # the fused_bf16 slice through the CLI, 256^3: every direction on the
+    # bf16 pair, 24 launches a step
+    def only(**counts):
+        want = {k: 0 for k in counters.read()}
+        want.update(counts)
+        return want
+
+    solver, got = run_slice(data, cfgp, "box_bf16", SLICE_STEPS, "pair",
+                            only(pair_sweep_bf16=SLICE_STEPS * per_step),
+                            backend="fused_bf16")
+    if not solver.dispatch_report(NUM_LOCAL)["bf16"]:
+        fail("fused_bf16 does not report bf16 payloads")
+    rec["pair_sweep_bf16"]["launches"] = got["pair_sweep_bf16"]
+    timing["256 fused_bf16"] = time_steps(solver, dt, NUM_LOCAL, TIMED_STEPS,
+                                          math.prod(shape))
+    step_vs_plain(solver, dt, NUM_LOCAL, ps, "pair_sweep", ps.pair_sweep_ref,
+                  twin="fused_nl")
+    # nl=3: the pairs, then the bf16 stream iteration
+    solver.update_boundaries()
+    counters.reset()
+    nl3_args = (solver.cur, solver.next, solver.ga, dt, NUM_GLOBAL, 3,
+                solver.pa)
+    nl3_kw = dict(exact=False, compute_error=False, merge_ok=solver.merge_ok)
+    rep = adi3d.dispatch_report(shape, (False,) * 3, "fused_bf16", 3,
+                                solver.merge_ok)
+    t0 = time.perf_counter()
+    new4 = torch.stack(adi3d.adi_timestep_3d(*nl3_args, backend="fused_bf16",
+                                             **nl3_kw)[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    got = counters.read()
+    want = only(pair_sweep_bf16=NUM_GLOBAL * 3 * 2,
+                stream_sweep_bf16=NUM_GLOBAL * 3)
+    print(f"fused_bf16 nl=3: dispatch {rep['dirs']}, launches {got}, "
+          f"{step_ms:.2f} ms for the step ({smi})")
+    if got != want or set(rep["dirs"].values()) != {"pair+stream"}:
+        fail(f"fused_bf16 nl=3: launches {got} (expected {want}), "
+             f"dispatch {rep['dirs']}")
+    rec["stream_sweep_bf16"]["launches"] = got["stream_sweep_bf16"]
+    twin_err("fused_bf16 nl=3 step vs fused_nl", new4, torch.stack(
+        adi3d.adi_timestep_3d(*nl3_args, backend="fused_nl", **nl3_kw)[0]))
+    del solver, new4, nl3_args
+
+    # the fused_pcr_bf16 slice: the bf16 PCR pair on every direction
+    psolver, got = run_slice(data, cfgp, "box_pcr_bf16", SLICE_STEPS, "pair",
+                             only(pcr_sweep_bf16=SLICE_STEPS * per_step),
+                             backend="fused_pcr_bf16")
+    rep = psolver.dispatch_report(NUM_LOCAL)
+    if not (rep["pcr"] and rep["bf16"]):
+        fail(f"fused_pcr_bf16 reports pcr={rep['pcr']} bf16={rep['bf16']}")
+    rec["pcr_sweep_bf16"]["launches"] = got["pcr_sweep_bf16"]
+    timing["256 fused_pcr_bf16"] = time_steps(psolver, dt, NUM_LOCAL,
+                                              TIMED_STEPS, math.prod(shape))
+    step_vs_plain(psolver, dt, NUM_LOCAL, pcs, "pcr_sweep",
+                  pcs.pcr_sweep_ref, twin="fused_pcr")
+    del psolver
+
+    # the baffle on fused_bf16: X on the bf16 dual pair
+    bsolver.update_boundaries()
+    b_args = (bsolver.cur, bsolver.next, bsolver.ga, BAFFLE_DT, NUM_GLOBAL,
+              NUM_LOCAL, bsolver.pa)
+    b_kw = dict(exact=False, compute_error=False, merge_ok=bsolver.merge_ok)
+    rep = bsolver.dispatch_report(NUM_LOCAL)
+    counters.reset()
+    new4 = torch.stack(adi3d.adi_timestep_3d(*b_args, backend="fused_bf16",
+                                             **b_kw)[0])
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = only(pair_sweep_dual_bf16=NUM_GLOBAL * NUM_LOCAL,
+                pair_sweep_bf16=NUM_GLOBAL * 2 * NUM_LOCAL)
+    print(f"baffle fused_bf16: dispatch {rep['dirs']} bf16={rep['bf16']}, "
+          f"launches {got} (expected {want})")
+    if got != want:
+        fail(f"baffle fused_bf16: launches {got} != {want}")
+    rec["pair_sweep_dual_bf16"]["launches"] = got["pair_sweep_dual_bf16"]
+    twin_err("baffle fused_bf16 step vs auto", new4, torch.stack(
+        adi3d.adi_timestep_3d(*b_args, backend="auto", **b_kw)[0]))
+    del bsolver, new4, b_args
+    torch.cuda.empty_cache()
+
+    # 383^3 on fused_bf16: the fallback, the bf16 line sweep
+    lsolver, got = run_slice(data_l, cfgp_l, "box383_bf16", 1, "fallback",
+                             only(line_sweep_bf16=per_step),
+                             backend="fused_bf16")
+    rec["line_sweep_bf16"]["launches"] = got["line_sweep_bf16"]
+    timing["383 fused_bf16"] = time_steps(lsolver, dt_l, NUM_LOCAL,
+                                          LONG_TIMED_STEPS,
+                                          math.prod(BOX383_SHAPE))
+    step_vs_plain(lsolver, dt_l, NUM_LOCAL, ls, "line_sweep",
+                  ls.line_sweep_ref, twin="fused_nl")
+    ga_l = lsolver.ga
+    temp4 = torch.stack(tuple(lsolver.cur))
+    rhs4 = torch.stack(tuple(lsolver.next))
+    for axis in range(3):
+        scal = adi3d._nl_scal(axis, lsolver.pa, dt_l)
+        d4 = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga_l,
+                                              lsolver.pa, scal[2]),
+                          ga_l.cls_a[axis]).bfloat16()
+        for exact in (True, False):
+            largs = (temp4[axis], ga_l.pk_a[axis], d4, scal[:4], axis, exact)
+            bitwise("line_sweep_bf16", f"383 {'XYZ'[axis]} exact={exact}",
+                    lambda: ls.line_sweep(*largs),
+                    lambda: ls.line_sweep_ref(*largs), k_reps=3)
+        del d4
+    del lsolver, ga_l, temp4, rhs4, largs
+    torch.cuda.empty_cache()
+
+    # 2D: fused_bf16 runs the line sweep at 2048^2, at 1024^2 (where
+    # fused_nl streams) and on the 2D CLI's box
+    for n in (2048, 1024):
+        n_launch, ms, _ = run_2d_config(n, "line", TIMED_STEPS_2D,
+                                        backend="fused_bf16")
+        timing[f"2d{n} fused_bf16"] = {False: ms}
+        if n == 2048:
+            rec["line_sweep_2d_bf16"]["launches"] = n_launch
+    counters.reset()
+    solver2, errs2, prof2 = cli2d.run_case(
+        data2, "", os.path.join(work, "box2d_bf16.cdl"), cfgp2,
+        max_steps=CLI2D_STEPS, collect_errs=True, device=dev,
+        backend="fused_bf16")
+    torch.cuda.synchronize()
+    got = counters.read()
+    rep = solver2.dispatch_report()
+    sec = {k: t / c * 1e3 for k, (c, t) in prof2.events.items()}
+    print(f"2D CLI fused_bf16: dirs={rep}; launches {got}; divergence "
+          f"error per step {errs2}; ms per call {json.dumps(sec)} ({smi})")
+    if (set(rep.values()) != {"line"}
+            or got["line_sweep_bf16"] < 2 * cfg2.num_global * CLI2D_STEPS
+            or any(v for k, v in got.items() if k != "line_sweep_bf16")
+            or len(errs2) != CLI2D_STEPS
+            or not all(math.isfinite(x) for x in errs2)):
+        fail(f"2D CLI fused_bf16: dirs {rep}, launches {got}, errors {errs2}")
+    del solver2
+
+    # bf16 against float32 over 100 steps from the start, the box at about
+    # 128^3 (twice the bench's dx): max|du| / max|u| along the way
+    data_d, cfgp_d = gen(os.path.join(work, "b128"), dx=2 * BOX_DX,
+                         time_steps=4, num_global=NUM_GLOBAL,
+                         num_local=NUM_LOCAL)
+    cfg_d, params_d, grid_d = cli3d.load_case(data_d, cfgp_d)
+    dt_d = grid_d.cycle_len / (grid_d.num_frames * cfg_d.time_steps)
+    twins = {}
+    for b in ("fused_bf16", "fused_nl"):
+        twins[b] = make_solver_3d("ADI", backend=b, device=dev)
+        twins[b].init(grid_d, params_d)
+    drift = {}
+    for step in range(1, DRIFT_STEPS + 1):
+        for sv in twins.values():
+            sv.update_boundaries()
+            sv.time_step(dt_d, NUM_GLOBAL, NUM_LOCAL, compute_error=False)
+        if step in DRIFT_AT:
+            u_b, u_f = twins["fused_bf16"].cur.u, twins["fused_nl"].cur.u
+            drift[step] = float((u_b - u_f).abs().max() / u_f.abs().max())
+    print(f"drift of fused_bf16 from fused_nl on the "
+          f"{tuple(twins['fused_nl'].cur.u.shape)} box, max|du|/max|u| by "
+          f"step: {json.dumps(drift)}")
+    if not all(math.isfinite(v) for v in drift.values()):
+        fail(f"bf16 drift not finite: {drift}")
+    del twins
+
+    for k, (k_ms, p_ms) in bf16_ms.items():
+        cells = {"line_sweep_bf16": math.prod(BOX383_SHAPE),
+                 "stream_sweep_2d_bf16": 1024 * 1024,
+                 "line_sweep_2d_bf16": 2048 * 2048}.get(k, math.prod(shape))
+        note(k, 0.0, k_ms, p_ms, cells)
+    # adi2d sends fused_bf16 to the line sweep, as cmcfs_tpu does: no
+    # dispatch reaches the 2D bf16 stream mode (held to its plain version
+    # above)
+    rec["stream_sweep_2d_bf16"]["path"] = (
+        "none: the 2D fused_bf16 runs the line sweep (adi2d.py:92-134)")
 
     # ------------------------------------------------------------ result
     phase("result")

@@ -4,7 +4,8 @@ Usage (grammar of reference src/FluidSolver3D/FluidSolver3D.cpp:26-51):
     python -m cmcfs_tpu_torch.cli3d <input> <output_base> <config> [flags]
 
 Flags: ``align``, ``CSV`` (section table as CSV), ``quiet``, ``backend
-auto|fused_nl|fused_pcr|fused_full|fused_dma|fused|scan|pallas|pcr``;
+auto|fused_nl|fused_pcr|fused_bf16|fused_pcr_bf16|fused_full|fused_dma|fused|
+scan|pallas|pcr``;
 ``transpose`` and ``decompose`` are accepted and have no effect, as in
 cmcfs_tpu.  The run needs a CUDA device.
 Flags of cmcfs_tpu's CLI that the port does not have yet exit with
@@ -46,6 +47,23 @@ UNPORTED_FLAGS = {
     "profile": "the per-direction profiled step (ROADMAP A5)",
     "dump_grid": "the BMP mask dump (ROADMAP A5)",
 }
+
+
+BF16_STEP_WARN_THRESHOLD = 200
+
+
+def bf16_horizon_warning(backend: str, total_steps: int) -> str | None:
+    """Guardrail for the bf16 payload backends, which part from the
+    float32 ones by their per-step rounding: a warning for runs of more than
+    BF16_STEP_WARN_THRESHOLD steps, else None (cmcfs_tpu/cli3d.py:41-56;
+    the drift figure is cmcfs_tpu's measurement, RESULTS.md)."""
+    if (backend not in ("fused_bf16", "fused_pcr_bf16")
+            or total_steps <= BF16_STEP_WARN_THRESHOLD):
+        return None
+    return (f"WARNING: backend {backend} over {total_steps} steps: bf16 "
+            f"storage drift accumulates (~19% of max|u| by step 100 on a "
+            f"developing flow, RESULTS.md); this mode is for bounded-horizon/"
+            f"visualization runs — use fused_full for long trajectories")
 
 
 def build_grid(cfg: Config, input_path: str, align: bool = False) -> Grid3D:
@@ -151,6 +169,13 @@ def run_case(input_path: str, output_base: str, config_path: str,
     dt = length / (frames * cfg.time_steps)
     finaltime = length * cfg.cycles
 
+    total_steps = int(round(finaltime / dt))
+    if max_steps is not None:
+        total_steps = min(total_steps, max_steps)
+    warn = bf16_horizon_warning(backend, total_steps)
+    if warn:
+        print(warn, file=sys.stderr)
+
     depths = getattr(grid, "bathy", None)
     nc = writers.NetCDF3DOutput(
         output_base + "_res.nc", grid.bbox_min, grid.bbox_max,
@@ -161,7 +186,7 @@ def run_case(input_path: str, output_base: str, config_path: str,
     if not quiet:
         rep = solver.dispatch_report(cfg.num_local)
         print(f"dispatch: backend={rep['backend']} pad={rep['pad']} "
-              f"pcr={rep['pcr']} dirs={rep['dirs']}")
+              f"pcr={rep['pcr']} bf16={rep['bf16']} dirs={rep['dirs']}")
 
     prof = SectionTimer(solver.device)
     timer = CpuTimer()

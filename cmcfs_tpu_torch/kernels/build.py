@@ -38,6 +38,14 @@ SIGNATURES = {
     "cmcfs_pcr_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
     "cmcfs_stream_sweep_iter": ([_P] * 10 + [_I] * 8 + [_F] * 5 + [_P], _I),
     "cmcfs_line_sweep": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P], _I),
+    # the bf16 payload mode: the pair entries take op_bf16, out_bf16 last
+    "cmcfs_pair_sweep_iter_bf16": ([_P] * 10 + [_I] * 6 + [_F] * 8
+                                   + [_I] * 2 + [_P], _I),
+    "cmcfs_pcr_sweep_iter_bf16": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_I] * 2
+                                  + [_P], _I),
+    "cmcfs_stream_sweep_iter_bf16": ([_P] * 10 + [_I] * 8 + [_F] * 5 + [_P],
+                                     _I),
+    "cmcfs_line_sweep_bf16": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P], _I),
     "cmcfs_tridiag_rows": ([_P] * 6 + [_L, _I, _L, _I, _I, _I, _P], _I),
     # the measurement probes (cmcfs_tpu_torch/probes)
     "cmcfs_probe_rowcost": ([_P] * 4 + [_I] * 5 + [_P], _I),

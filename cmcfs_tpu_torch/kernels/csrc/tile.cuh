@@ -3,10 +3,18 @@
 // shared memory, lines fast (a chunk row of the block's lines is one
 // coalesced run) or rows fast (each line's rows are one contiguous run:
 // the transposing tile of a sweep along the contiguous axis), and the
-// int8 mask runs copied as the aligned words that cover them.
+// int8 mask runs copied as the aligned words that cover them.  bf16
+// payload planes (the bf16 mode) take their own loader: cp.async copies 4,
+// 8 or 16 bytes, not a 2-byte element, and a bf16 row of an odd grid
+// starts on a 2-byte boundary; their elements are loaded, upcast (exact)
+// and stored to the same float tile planes.  Outputs are stored through
+// store_as, which rounds to bf16 to nearest even (torch's
+// .to(torch.bfloat16) and XLA's convert round so).
 #pragma once
 
 #include <cstdint>
+
+#include <cuda_bf16.h>
 
 namespace {
 
@@ -24,6 +32,42 @@ __device__ __forceinline__ void cp_async4(unsigned sa, const void* gmem) {
                "l"(gmem)
                : "memory");
 }
+
+// st.shared of one float at the shared-window byte address ``sa``.
+__device__ __forceinline__ void st_shared_f32(unsigned sa, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(sa), "f"(v) : "memory");
+}
+
+// A payload element as float (bf16 upcasts exactly), and a float stored
+// as element i of a payload (bf16 rounds to nearest even).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_as(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, long long i,
+                                         float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// The payload types of a sweep launch: what it reads for rhs (R) and for
+// out_prev (O), and what it writes for out and tn (W) (pair_sweep.cuh,
+// pcr_sweep.cuh).  A bf16 pair is two launches: the first reads bf16 and
+// writes float32 out1 and tn1, as the TPU kernel keeps them in float32
+// VMEM; the second reads float32 out1 and writes bf16.
+template <class TR, class TO, class TW>
+struct Payload {
+  using R = TR;
+  using O = TO;
+  using W = TW;
+};
+using bf16 = __nv_bfloat16;
+using PayF32 = Payload<float, float, float>;
+using PayIn = Payload<bf16, bf16, float>;    // a bf16 pair's first launch
+using PayOut = Payload<bf16, float, bf16>;   // a bf16 pair's second launch
+using PayBf16 = Payload<bf16, bf16, bf16>;   // the bf16 stream iteration
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -73,6 +117,24 @@ struct Lane {
           cp_async4(sa + s0 + 4u * (j * kStep),
                     src + (g0 + j * gs + dl(line(j))));
     }
+  }
+  // The same for a bf16 plane: each element loaded and upcast by this
+  // thread and stored to the float tile (all loads first).  It is in the
+  // tile once this thread's stores are done, so after the block's next
+  // barrier, like the cp.async copies after their wait.
+  template <class Dl>
+  __device__ __forceinline__ void copy(unsigned sa,
+                                       const __nv_bfloat16* src, bool full,
+                                       int rows_v, int lines_v, Dl dl) const {
+    float v[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (full || (row(j) < rows_v && line(j) < lines_v))
+        v[j] = __bfloat162float(src[g0 + j * gs + dl(line(j))]);
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (full || (row(j) < rows_v && line(j) < lines_v))
+        st_shared_f32(sa + s0 + 4u * (j * kStep), v[j]);
   }
 };
 

@@ -64,8 +64,11 @@ struct Materialized {
   const float *a, *b, *c, *d;
   long long fs;
   __device__ static constexpr int chain(int) { return 0; }
-  __device__ const float* field(int i) const {
-    return i == 0 ? a : i == 1 ? b : i == 2 ? c : d + (i - 3) * fs;
+  template <class Ln>
+  __device__ void fetch(const Ln& lane, int i, unsigned sa, long long o,
+                        bool full, int rows_v, int lines_v) const {
+    const float* f = i == 0 ? a : i == 1 ? b : i == 2 ? c : d + (i - 3) * fs;
+    lane.copy(sa, f + o, full, rows_v, lines_v, NoShift());
   }
   __device__ const int8_t* mask() const { return nullptr; }
   __device__ void rows(const float (&f)[kNF], int, float (&aa)[1],

@@ -9,9 +9,16 @@
 //   kNC, kND      the c' chains (one per distinct set of rows) and the d'
 //                 chains (one per right-hand side)
 //   chain(v)      the c' chain whose rows system v solves
-//   field(i)      plane i's first cell; mask() the code plane's
+//   fetch(lane, i, sa, o, full, rows_v, lines_v)   copy the chunk of plane
+//                 i whose first cell lies o past the plane's first cell
+//                 into the tile plane at sa (Lane::copy: cp.async for
+//                 float32 planes, tile.cuh's loader for bf16 ones);
+//                 mask() the code plane's first cell
 //   rows(f, code, a, b, c, d)   the rows of every chain and the right-hand
 //                 side of every system, from a row's staged values
+//
+// The solution x is stored as the type of the x pointer: float32, or bf16
+// rounded to nearest even (store_as).
 //
 // Forward: at each row the walk advances every chain, in the plain
 // version's order (ops/tridiag_rows.tridiag_rows_ref): a = 0 on row 0, c =
@@ -85,9 +92,9 @@ struct WalkTile {
   static constexpr int kWords = S * (kFwd > kBwd ? kFwd : kBwd);
 };
 
-template <class P, bool kZ, bool kExact, int L, int R, int S>
+template <class P, bool kZ, bool kExact, int L, int R, int S, class TX>
 __device__ __forceinline__ void walk(const P& pol, const Lines& g,
-                                     bool recip_row0, float* __restrict__ x,
+                                     bool recip_row0, TX* __restrict__ x,
                                      float* __restrict__ scratch) {
   using Tl = WalkTile<P, kZ, L, R, S>;
   constexpr int kS = Tl::kS, kPlane = Tl::kPlane, kW = Tl::kW;
@@ -132,8 +139,7 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
     const long long o0 = base0 + (long long)p0 * g.sp;
 #pragma unroll
     for (int i = 0; i < NF; ++i)
-      fld.copy(st + 4u * (i * kPlane), pol.field(i) + o0, full, rows_v,
-               lines_v, NoShift());
+      pol.fetch(fld, i, st + 4u * (i * kPlane), o0, full, rows_v, lines_v);
     if constexpr (P::kMask)
       copy_mask<kZ, R, kW>(st + 4u * (NF * kPlane), t, rows_v, lines_v,
                            mk + (kZ ? p0 : (long long)p0 * g.sp), sp, s2);
@@ -237,7 +243,7 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
   // ---- backward walk: X/Y store x of a row directly; Z puts it into the
   // row's d' slot, which it has read
   float xn[ND];
-  float* const x0 = x + base0 + t * g.s2;
+  TX* const x0 = x + base0 + t * g.s2;
   auto bwd_row = [&](int b, int k, int r) {
     float* st = smem + b * Tl::kBwd;
     const int i = r * kS + t, p = k * R + r;
@@ -252,7 +258,7 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
       if constexpr (kZ)
         st[(NC + v) * kPlane + i] = xn[v];
       else
-        x0[v * g.fs + (long long)p * g.sp] = xn[v];
+        store_as(x0, v * g.fs + (long long)p * g.sp, xn[v]);
     }
   };
 
@@ -262,14 +268,14 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
     const float* st = smem + b * Tl::kBwd + fld.s0 / 4;
     const int rows_v = chunk_rows(k);
     const bool full = is_full(k);
-    float* const o = x + base0 + (long long)k * R * g.sp + fld.g0;
+    TX* const o = x + base0 + (long long)k * R * g.sp + fld.g0;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       if (full || (fld.row(j) < rows_v && fld.line(j) < lines_v)) {
         const int i = j * fld.kStep, oj = j * fld.gs;
 #pragma unroll
         for (int v = 0; v < ND; ++v)
-          o[v * g.fs + oj] = st[(NC + v) * kPlane + i];
+          store_as(o, v * g.fs + oj, st[(NC + v) * kPlane + i]);
       }
     }
   };
@@ -301,9 +307,9 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
 // The launch of a walk kernel over g's lines: one block of L threads per
 // L lines, blocks numbered i1-major; dynamic shared memory past 48 KB is
 // opted into.  Returns cudaGetLastError().
-template <class P, bool kZ, int L, int R, int S, class Kernel>
+template <class P, bool kZ, int L, int R, int S, class Kernel, class TX>
 int launch_walk(Kernel kernel, const P& pol, const Lines& g, int recip_row0,
-                float* x, float* scratch, cudaStream_t stream) {
+                TX* x, float* scratch, cudaStream_t stream) {
   const int bytes = WalkTile<P, kZ, L, R, S>::kWords * 4;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -16,7 +16,9 @@ Each direction takes one of three paths, chosen by cmcfs_tpu's predicates
            and ``fused_nl`` where ``stream_ok_2d`` holds and the line fits
            ``_stream2d_fits``;
 * "line"   the 2D line sweep (``ops/line_sweep.line_sweep_2d``) on an RHS
-           built here, for the other fused backends and directions;
+           built here, for the other fused backends and directions
+           (``fused_bf16`` always: its folded d goes in rounded to bf16
+           and its x comes back rounded and is upcast, adi2d.py:123-134);
 * "rows"   materialized (a, b, c, d) rows solved by ``ops/tridiag``
            (backends ``scan`` and ``pallas``: the tridiag_rows kernel;
            ``pcr``: cyclic reduction in PyTorch ops, ``ops/pcr.py``, as
@@ -52,11 +54,8 @@ _F = np.float32
 # the stream predicates hold, the stream sweep for fused_full/fused_nl);
 # scan and pallas solve materialized rows with the tridiag_rows kernel,
 # pcr by cyclic reduction
-FUSED = ("fused", "fused_dma", "fused_full", "fused_nl")
+FUSED = ("fused", "fused_dma", "fused_full", "fused_bf16", "fused_nl")
 BACKENDS = FUSED + ("scan", "pallas", "pcr")
-_UNPORTED = {
-    "fused_bf16": "the bf16 payloads (ROADMAP B2)",
-}
 
 
 class ParamsArgs(NamedTuple):
@@ -83,9 +82,6 @@ def resolve_backend(backend: str) -> str:
     backend = "fused_dma" if backend == "auto" else backend
     if backend in BACKENDS:
         return backend
-    if backend in _UNPORTED:
-        raise NotImplementedError(
-            f"2D backend {backend!r} is not ported: {_UNPORTED[backend]}")
     raise KeyError(f"unknown backend {backend!r}")
 
 
@@ -205,6 +201,10 @@ def _build_and_solve(axis: int, cur: State2D, temp_local: State2D,
                      ga: GridArrays2D, dt, pa: ParamsArgs, backend: str,
                      exact: bool) -> State2D:
     """One batched (u, v, T) solve along ``axis`` (adi2d.py:50-148)."""
+    if backend == "fused_bf16":
+        adv, pk, d3, scal = line_args(axis, cur, temp_local, ga, dt, pa)
+        return State2D(*line_sweep_2d(adv, pk, d3.bfloat16(), scal, axis,
+                                      exact).float())
     if backend in FUSED:
         return State2D(*line_sweep_2d(
             *line_args(axis, cur, temp_local, ga, dt, pa), axis, exact))

@@ -11,11 +11,11 @@ Each direction takes one of cmcfs_tpu's four paths, chosen by the same
 predicates (``_dir_path``, adi3d.py:482-507):
 
 * "pair"        the pair sweep (``ops/pair_sweep.py``; under ``fused_pcr``
-                its PCR form, ``ops/pcr_sweep.py``), num_local/2 times,
-                lines with FREE dual endpoints stitched in the kernel
-                (the ``dual_flags`` plane);
+                and ``fused_pcr_bf16`` its PCR form, ``ops/pcr_sweep.py``),
+                num_local/2 times, lines with FREE dual endpoints stitched
+                in the kernel (the ``dual_flags`` plane);
 * "pair+stream" the pairs, then one stream iteration (odd num_local;
-                dual-free only, Thomas under ``fused_pcr`` too, as in
+                dual-free only, Thomas under the PCR backends too, as in
                 cmcfs_tpu);
 * "stream"      num_local stream iterations (``ops/stream_sweep.py``);
 * "fallback"    per iteration: the RHS built here with ``ops/stencil``,
@@ -38,6 +38,18 @@ default xmode layout cmcfs_tpu runs PCR on every pair direction of
 The step keeps the fields stacked (4, nx, ny, nz): it stacks ``cur`` and
 ``nxt_prev`` once, and the returned State3D's fields are views of one
 stacked tensor.
+
+The bf16 backends (``fused_bf16``, ``fused_pcr_bf16``) store the kernels'
+payloads in bfloat16 and compute in float32, rounding where cmcfs_tpu
+rounds: the pair and stream sweeps read rhs and out_prev rounded
+(adi3d.py:415-419, 544-548) and their out and tn come back rounded and
+upcast (:452-454, :676-678), temp staying float32; the fallback rounds the
+folded d, BC values included (:291-295), and upcasts x before the dual
+stitch, UpdateSegment and the merge, which run in float32 on the
+unrounded out_prev (:301-302).  A pair or stream direction's out stays in
+bf16 (its values are cmcfs_tpu's float32 upcast of them), so the next
+kernel that reads it as rhs or out_prev needs no cast; temp and the
+fallback's arithmetic are float32, and the step returns float32.
 """
 from __future__ import annotations
 
@@ -69,18 +81,16 @@ _STEP_TILES = (8, 128, 128)
 _F = np.float32
 _AXES = ((0, "X"), (1, "Y"), (2, "Z"))
 _DISS = (stencil.diss_x_3d, stencil.diss_y_3d, stencil.diss_z_3d)
-# backends the port runs, and the ROADMAP item of those it does not; the
-# fused ones are cmcfs_tpu's step-pad list (adi3d.py:728-732) as far as
-# ported, scan, pallas and pcr solve materialized rows
-FUSED = ("fused_nl", "fused_pcr", "fused_full", "fused_dma", "fused")
+# the backends the port runs; the fused ones are cmcfs_tpu's step-pad list
+# (adi3d.py:728-732), scan, pallas and pcr solve materialized rows
+FUSED = ("fused_nl", "fused_pcr", "fused_bf16", "fused_pcr_bf16",
+         "fused_full", "fused_dma", "fused")
 BACKENDS = FUSED + ("scan", "pallas", "pcr")
-# the backends whose pair directions run the pair kernel
-PAIR_BACKENDS = ("fused_nl", "fused_pcr")
-_UNPORTED = {
-    "fused_pcr_bf16": "the bf16 payloads of the pcr pair kernel (ROADMAP "
-                      "B2)",
-    "fused_bf16": "the bf16 payloads (ROADMAP B2)",
-}
+# the backends whose pair directions run the pair kernel, those that run
+# its PCR form, and those that store the kernels' payloads in bf16
+PAIR_BACKENDS = ("fused_nl", "fused_pcr", "fused_bf16", "fused_pcr_bf16")
+PCR_BACKENDS = ("fused_pcr", "fused_pcr_bf16")
+BF16_BACKENDS = ("fused_bf16", "fused_pcr_bf16")
 
 
 class ParamsArgs3D(NamedTuple):
@@ -123,9 +133,6 @@ def resolve_backend(backend: str) -> str:
     backend = "fused_nl" if backend == "auto" else backend
     if backend in BACKENDS:
         return backend
-    if backend in _UNPORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported: {_UNPORTED[backend]}")
     raise KeyError(f"unknown backend {backend!r}")
 
 
@@ -168,10 +175,12 @@ def dispatch_report(shape3: tuple, duals: tuple, backend: str,
                     merge_ok: tuple = (False, False, False)) -> dict:
     """Which implementation each direction runs, decided as cmcfs_tpu's
     dispatch_report decides it (adi3d.py:746-793) on a single device:
-    {"backend", "pad", "pcr", "dirs"}, dirs {"X"|"Y"|"Z": "pair"|
+    {"backend", "pad", "pcr", "bf16", "dirs"}, dirs {"X"|"Y"|"Z": "pair"|
     "pair+stream"|"stream"|"fallback"}; ``pcr``: the pair directions
-    reduce cyclically (``fused_pcr``).  ``duals``: per axis, the grid keeps
-    a dual pass B (``GridArrays3D.cls_b``)."""
+    reduce cyclically (``fused_pcr``, ``fused_pcr_bf16``); ``bf16``: the
+    kernels' payloads are stored in bf16 (``fused_bf16``,
+    ``fused_pcr_bf16``).  ``duals``: per axis, the grid keeps a dual pass
+    B (``GridArrays3D.cls_b``)."""
     backend = resolve_backend(backend)
     pad = _step_pad(tuple(shape3), backend)
     pshape = (tuple(n + p for n, p in zip(shape3, pad)) if pad
@@ -179,8 +188,8 @@ def dispatch_report(shape3: tuple, duals: tuple, backend: str,
     dirs = {name: _dir_path(pshape[ax], backend, merge_ok[ax],
                             not duals[ax], num_local)
             for ax, name in _AXES}
-    return dict(backend=backend, pad=pad, pcr=backend == "fused_pcr",
-                dirs=dirs)
+    return dict(backend=backend, pad=pad, pcr=backend in PCR_BACKENDS,
+                bf16=backend in BF16_BACKENDS, dirs=dirs)
 
 
 def fallback_rhs(axis, rhs4, temp4, ga, pa, inv3dt):
@@ -232,11 +241,16 @@ def _solve_rows(axis, d4, adv, cls, ga, pa, scal, exact, backend):
 
 def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact, backend):
     """_build_and_solve_3d (adi3d.py:208-384) on a single device: the fused
-    branch (the line sweep) or, for scan and pallas, the row path; x4 for
-    both line classes, stitched where pass B wins."""
-    d, d_bc = fallback_rhs(axis, rhs4, temp4, ga, pa, scal[2])
+    branch (the line sweep; the bf16 backends round its folded d and upcast
+    its x, solve_fused :291-302) or, for scan and pallas, the row path; x4
+    for both line classes, stitched where pass B wins."""
+    d, d_bc = fallback_rhs(axis, rhs4.float(), temp4, ga, pa, scal[2])
     adv = temp4[axis]
-    if backend in FUSED:
+    if backend in BF16_BACKENDS:
+        def solve(pk, cls):
+            return line_sweep(adv, pk, fold_d(d, d_bc, cls).bfloat16(),
+                              scal[:4], axis, exact).float()
+    elif backend in FUSED:
         def solve(pk, cls):
             return line_sweep(adv, pk, fold_d(d, d_bc, cls), scal[:4], axis,
                               exact)
@@ -251,13 +265,25 @@ def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact, backend):
     return x
 
 
-def _stream_iteration(axis, rhs4, temp4, out4, ga, pa, scal, exact):
-    """_solve_stream_fused (adi3d.py:387-456): returns (temp4, out4)."""
+def _stream_iteration(axis, rhs4, temp4, out4, ga, pa, scal, exact,
+                      bf16=False):
+    """_solve_stream_fused (adi3d.py:387-456): returns (temp4, out4).
+    ``bf16``: rhs4 and out4 go in rounded (a no-op on bf16 tensors), tn
+    comes back rounded and is upcast, out stays bf16."""
     forcing = pa.t_phi * _DISS[axis](temp4[0], temp4[1], temp4[2],
                                      pa.dx, pa.dy, pa.dz)
+    pay = _payload(bf16)
     out4, tn4 = stream_sweep(temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp,
-                             rhs4, out4, forcing, scal[:5], axis, exact)
-    return tn4, out4
+                             pay(rhs4), pay(out4), forcing, scal[:5], axis,
+                             exact)
+    return tn4.float(), out4
+
+
+def _payload(bf16):
+    """A kernel's payload as the backend stores it: bf16 rounded to
+    nearest even (the tensor itself if it is bf16), or the float32 tensor
+    itself."""
+    return torch.Tensor.bfloat16 if bf16 else (lambda t: t)
 
 
 def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
@@ -276,18 +302,22 @@ def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
             temp4 = torch.where(is_in, (temp4 + out4) / 2.0, temp4)
         return temp4, out4
     n_left = num_local
+    bf16 = backend in BF16_BACKENDS
     if path in ("pair", "pair+stream"):
-        sweep = pcr_sweep if backend == "fused_pcr" else pair_sweep
+        sweep = pcr_sweep if backend in PCR_BACKENDS else pair_sweep
+        pay = _payload(bf16)
+        rhs_p = pay(rhs4)
         pairs = num_local // 2
         for k in range(pairs):
             out4, temp4 = sweep(temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp,
-                                rhs4, out4, scal, axis, exact,
+                                rhs_p, pay(out4), scal, axis, exact,
                                 gmerge and k == pairs - 1,
                                 ga.dual_flags[axis])
+            temp4 = temp4.float()
         n_left = num_local % 2
     for _ in range(n_left):
         temp4, out4 = _stream_iteration(axis, rhs4, temp4, out4, ga, pa,
-                                        scal, exact)
+                                        scal, exact, bf16)
     return temp4, out4
 
 
@@ -328,13 +358,16 @@ def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
                                 scals[axis], num_local, exact, gmerge,
                                 backend)
 
+    # the bf16 backends' Z rhs, rounded once a step for the kernels
+    rhs_z = (cur4.bfloat16() if backend in BF16_BACKENDS
+             and paths[2] != "fallback" else cur4)
     for _ in range(num_global):
-        temp4, nxt4 = direction(2, cur4, temp4, nxt4)
+        temp4, nxt4 = direction(2, rhs_z, temp4, nxt4)
         temp4, half4 = direction(1, nxt4, temp4, half4)
         temp4, nxt4 = direction(0, half4, temp4, nxt4, gmerge=gfold)
         if not gfold:
             temp4 = torch.where(is_in, (temp4 + nxt4) / 2.0, temp4)
-    nxt = State3D(*nxt4.unbind(0))
+    nxt = State3D(*nxt4.float().unbind(0))
     if compute_error:
         err = stencil.div_error_3d(nxt.u, nxt.v, nxt.w, types,
                                    pa.dx, pa.dy, pa.dz)

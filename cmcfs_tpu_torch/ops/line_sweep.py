@@ -30,6 +30,12 @@ Per variable v:
 Both entry points dispatch on the tensors' device: CUDA tensors launch
 ``kernels/csrc/line_sweep.cu`` or raise; CPU tensors run the plain
 PyTorch version (``line_sweep_ref``, ``line_sweep_2d_ref``).
+
+bf16 payloads (pallas_sweep_dma.py:79-81, :263; pallas_sweep_long.py:
+344-353): a bfloat16 ``d`` is read upcast, Thomas runs in float32 and x
+comes back rounded to bfloat16; ``adv``, the masks and the (c', d')
+carries stay float32.  On the card it is ``line_sweep_bf16.cu``'s entry,
+counted in ``bf16_launches``.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from .tridiag_rows import tridiag_rows_ref, walk_scratch
 _F = np.float32
 
 launches = LaunchCounter()
+bf16_launches = LaunchCounter()   # bf16 d and x, 3D and 2D
 # the 3D Z tiles line_sweep.cu builds, by their rows (its kZR first)
 Z_ROWS = (16, 8, 32)
 
@@ -53,10 +60,11 @@ def _check(adv, pk, d, scal, axis, nd):
     if axis not in range(nd):
         raise ValueError(f"axis must be in 0..{nd - 1}, got {axis}")
     shape = tuple(adv.shape)
+    pay = torch.bfloat16 if d.dtype == torch.bfloat16 else torch.float32
     for name, t, dtype, want in (
             ("adv", adv, torch.float32, shape),
             ("pk", pk, torch.int8, shape),
-            ("d", d, torch.float32, (nd + 1,) + shape)):
+            ("d", d, pay, (nd + 1,) + shape)):
         if t.device != adv.device:
             raise ValueError(f"{name} is on {t.device}, adv on {adv.device}")
         if t.dtype != dtype:
@@ -98,7 +106,9 @@ def _launch(adv, pk, d, s, kaxis, axis, exact, z_rows=0):
     if adv.device.type != "cuda":
         raise RuntimeError(f"line_sweep has no kernel for {adv.device}")
     from ..kernels.build import load_library
-    fn = load_library().lib.cmcfs_line_sweep
+    bf16 = d.dtype == torch.bfloat16
+    lib = load_library().lib
+    fn = lib.cmcfs_line_sweep_bf16 if bf16 else lib.cmcfs_line_sweep
     nvars = d.shape[0]
     n = adv.shape[kaxis]
     x = torch.empty_like(d)
@@ -116,12 +126,13 @@ def _launch(adv, pk, d, s, kaxis, axis, exact, z_rows=0):
     if err != 0:
         raise RuntimeError(f"line_sweep kernel launch failed: CUDA error "
                            f"{err} (shape {tuple(adv.shape)}, axis {axis})")
-    launches.count += 1
+    (bf16_launches if bf16 else launches).count += 1
     return x
 
 
 def _ref(adv, pk, d, scal, axis, exact, bc2d):
-    """Plain PyTorch line sweep of every variable in ``d``; T is last."""
+    """Plain PyTorch line sweep of every variable in ``d``; T is last;
+    x in d's dtype (bf16: upcast in, float32 Thomas, rounded out)."""
     v_vis_h2, t_vis_h2, inv3dt, inv2h = np.asarray(scal, dtype=np.float32)
     cls, bcv, bct = decode_pk(pk)
     adv_2h = adv * inv2h
@@ -132,9 +143,9 @@ def _ref(adv, pk, d, scal, axis, exact, bc2d):
         free = (bct if v == t_var else bcv) == 1
         a, b, c = build_abc(cls, free, adv_2h, vis, inv3dt + _F(2.0) * vis,
                             bc2d)
-        xs.append(tridiag_rows_ref(a, b, c, d[v], axis=axis, exact=exact,
-                                   recip_row0=True))
-    return torch.stack(xs)
+        xs.append(tridiag_rows_ref(a, b, c, d[v].float(), axis=axis,
+                                   exact=exact, recip_row0=True))
+    return torch.stack(xs).to(d.dtype)
 
 
 def line_sweep_ref(adv, pk, d4, scal, axis: int, exact: bool):

@@ -1,11 +1,20 @@
 """The pair sweep: two local ADI iterations of one direction, 4 variables.
 
 Port of ``cmcfs_tpu/ops/pallas_sweep_nl.py::fused_sweep_nl`` in its Thomas
-form, with gmerge and the dual second chain (``flags``).  Its pcr mode is
-``ops/pcr_sweep.py``, which shares this module's plain iteration; its bf16
-payloads (ROADMAP B2) and targeted layout writes are not ported.  Fields
-keep the JAX package's layout: stacked (4, nx, ny, nz) float32 (u, v, w,
-T) and (nx, ny, nz) int8 masks.
+form, with gmerge, the dual second chain (``flags``) and the bf16 payloads.
+Its pcr mode is ``ops/pcr_sweep.py``, which shares this module's plain
+iteration; its targeted layout writes are not ported.  Fields keep the JAX
+package's layout: stacked (4, nx, ny, nz) float32 (u, v, w, T) and
+(nx, ny, nz) int8 masks.
+
+The payloads' dtype selects the mode, as in the JAX package
+(``rp4.dtype == bfloat16``, pallas_sweep_nl.py:1161): with ``rhs4`` and
+``out_prev4`` in bfloat16 the pair reads them upcast, computes in float32,
+keeps the first iteration's out1 and tn1 in float32 (the TPU kernel keeps
+them in VMEM, pallas_sweep_nl.py:269-273, :808, :834) and rounds only the
+second iteration's out and tn to bfloat16 (:956-959, :1002-1005); temp4,
+the masks and all arithmetic stay float32.  On the card that is two
+launches: bf16 in and float32 out, then float32 out_prev in and bf16 out.
 
 ``pair_sweep`` dispatches on the tensors' device:
 
@@ -55,13 +64,18 @@ _F = np.float32
 
 launches = LaunchCounter()        # one per local iteration, dual-free
 dual_launches = LaunchCounter()   # one per local iteration with flags
+bf16_launches = LaunchCounter()   # the same, bf16 payloads
+dual_bf16_launches = LaunchCounter()
 
 
 def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
                  nscal=8, ndim=3, flags=None):
     """Validate one iteration's operands, ``ndim``-D fields of ndim + 1
     variables (3D: u, v, w, T; 2D: u, v, T) and the optional dual
-    ``flags``; returns ``scal`` as float32."""
+    ``flags``; ``rhs4`` and ``out_prev4`` are float32, or both bfloat16
+    (the bf16 payloads); returns ``scal`` as float32."""
+    pay = (torch.bfloat16 if rhs4.dtype == torch.bfloat16
+           else torch.float32)
     if axis not in range(ndim):
         raise ValueError(f"axis must be in 0..{ndim - 1}, got {axis}")
     if cls.dim() != ndim:
@@ -71,8 +85,8 @@ def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
     dev = temp4.device
     for name, t, dtype, shape in (
             ("temp4", temp4, torch.float32, shape4),
-            ("rhs4", rhs4, torch.float32, shape4),
-            ("out_prev4", out_prev4, torch.float32, shape4),
+            ("rhs4", rhs4, pay, shape4),
+            ("out_prev4", out_prev4, pay, shape4),
             ("cls", cls, torch.int8, shape4[1:]),
             ("bcv", bcv, torch.int8, shape4[1:]),
             ("bct", bct, torch.int8, shape4[1:])) + (
@@ -95,7 +109,8 @@ def check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
 
 def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
                exact: bool, gmerge: bool, flags=None):
-    """Two local iterations of direction ``axis``; returns (out4, tn4).
+    """Two local iterations of direction ``axis``; returns (out4, tn4), in
+    the payloads' dtype.
 
     ``scal``: the 8 float32 scalars of ``models/adi3d._nl_scal``;
     ``flags``: the direction's dual plane (``models/common3d``), or None
@@ -107,8 +122,12 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
                               exact, gmerge, flags)
     if temp4.device.type != "cuda":
         raise RuntimeError(f"pair_sweep has no kernel for {temp4.device}")
-    counter = launches if flags is None else dual_launches
-    # both launches share the scratch (same stream)
+    if rhs4.dtype == torch.bfloat16:
+        counter = bf16_launches if flags is None else dual_bf16_launches
+    else:
+        counter = launches if flags is None else dual_launches
+    # both launches share the scratch (same stream); the first writes
+    # float32, the second the payloads' dtype
     scratch = new_scratch(4, cls, axis, flags is not None)
     out1, tn1 = launch_iteration(temp4, cls, bcv, bct, rhs4, out_prev4,
                                  None, scratch, s, axis, exact, False,
@@ -116,7 +135,7 @@ def pair_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
     counter.count += 1
     out4, tn4 = launch_iteration(tn1, cls, bcv, bct, rhs4, out1, None,
                                  scratch, s, axis, exact, gmerge,
-                                 flags=flags)
+                                 flags=flags, out_dtype=rhs4.dtype)
     counter.count += 1
     return out4, tn4
 
@@ -134,7 +153,7 @@ def new_scratch(nvars, cls, axis, dual=False):
 
 def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
                      axis, exact, gmerge, axis_var=None, first=False,
-                     flags=None):
+                     flags=None, out_dtype=torch.float32):
     """One launch of ``pair_sweep.cu``'s iteration kernel: the pair
     sweep's (``forcing`` None: dissipation in-kernel, 8 scalars, the dual
     chain where ``flags`` is given) or the stream sweep's (``forcing``
@@ -142,11 +161,15 @@ def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
     nz), masks (nx, ny, nz); ``axis`` is the sweep axis of that shape.
     Three variables (u, v, T) on the view (1, nx, ny) are the 2D stream
     mode (the 2D rows and the ``merge2d`` update with ``first``), which
-    names the advecting velocity ``axis_var``."""
+    names the advecting velocity ``axis_var``.  A bfloat16 ``rhs4`` takes
+    the bf16 entries (``pair_sweep_bf16.cu``, ``stream_sweep_bf16.cu``):
+    out and tn of ``out_dtype``, ``op4`` bfloat16 or float32 as the pair's
+    launches take them, and the stream's all bfloat16."""
     from ..kernels.build import load_library
     lib = load_library().lib
-    out4 = torch.empty_like(temp4)
-    tn4 = torch.empty_like(temp4)
+    bf16 = rhs4.dtype == torch.bfloat16
+    out4 = torch.empty_like(temp4, dtype=out_dtype)
+    tn4 = torch.empty_like(temp4, dtype=out_dtype)
     nx, ny, nz = cls.shape
     with torch.cuda.device(temp4.device):
         stream = torch.cuda.current_stream(temp4.device).cuda_stream
@@ -154,16 +177,20 @@ def launch_iteration(temp4, cls, bcv, bct, rhs4, op4, forcing, scratch, s,
                 bct.data_ptr(), rhs4.data_ptr(), op4.data_ptr())
         outs = (out4.data_ptr(), tn4.data_ptr(), scratch.data_ptr())
         if forcing is None:
-            err = lib.cmcfs_pair_sweep_iter(
-                *ptrs, None if flags is None else flags.data_ptr(), *outs,
-                nx, ny, nz, axis, int(exact), int(gmerge),
-                *(float(x) for x in s), stream)
+            pay = ((int(op4.dtype == torch.bfloat16),
+                    int(out_dtype == torch.bfloat16)) if bf16 else ())
+            fn = (lib.cmcfs_pair_sweep_iter_bf16 if bf16
+                  else lib.cmcfs_pair_sweep_iter)
+            err = fn(*ptrs, None if flags is None else flags.data_ptr(),
+                     *outs, nx, ny, nz, axis, int(exact), int(gmerge),
+                     *(float(x) for x in s), *pay, stream)
         else:
-            err = lib.cmcfs_stream_sweep_iter(
-                *ptrs, forcing.data_ptr(), *outs, nx, ny, nz, axis,
-                int(exact), temp4.shape[0],
-                axis if axis_var is None else axis_var, int(first),
-                *(float(x) for x in s), stream)
+            fn = (lib.cmcfs_stream_sweep_iter_bf16 if bf16
+                  else lib.cmcfs_stream_sweep_iter)
+            err = fn(*ptrs, forcing.data_ptr(), *outs, nx, ny, nz, axis,
+                     int(exact), temp4.shape[0],
+                     axis if axis_var is None else axis_var, int(first),
+                     *(float(x) for x in s), stream)
     if err != 0:
         name = "pair_sweep" if forcing is None else "stream_sweep"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -240,9 +267,13 @@ def iteration_ref(temp4, cls, bcv, bct, rhs4, op4, s, axis, exact, gmerge,
 
 def pair_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
                    exact: bool, gmerge: bool, flags=None, pcr=False):
-    """Plain PyTorch pair sweep on any device; returns (out4, tn4)."""
+    """Plain PyTorch pair sweep on any device; returns (out4, tn4) in the
+    payloads' dtype.  bf16 payloads are upcast, both iterations run in
+    float32, and only the second one's out and tn are rounded."""
     s = np.asarray(scal, dtype=np.float32)
-    out1, tn1 = iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s,
-                              axis, exact, False, flags=flags, pcr=pcr)
-    return iteration_ref(tn1, cls, bcv, bct, rhs4, out1, s, axis, exact,
-                         gmerge, flags=flags, pcr=pcr)
+    rhs = rhs4.float()
+    out1, tn1 = iteration_ref(temp4, cls, bcv, bct, rhs, out_prev4.float(),
+                              s, axis, exact, False, flags=flags, pcr=pcr)
+    out, tn = iteration_ref(tn1, cls, bcv, bct, rhs, out1, s, axis, exact,
+                            gmerge, flags=flags, pcr=pcr)
+    return out.to(rhs4.dtype), tn.to(rhs4.dtype)

@@ -14,7 +14,10 @@ take bit; UpdateSegment, the NODE_IN merge and the gmerge fold.
 ``kernels/csrc/pcr_sweep.cu`` once per local iteration (lines of at most
 ``MAX_N`` cells, each held whole in shared memory) or raise; CPU tensors
 run ``pcr_sweep_ref``, the plain version (``pair_sweep.pair_sweep_ref``
-with ``pcr``), which the kernel equals bit for bit on the card.
+with ``pcr``), which the kernel equals bit for bit on the card.  bf16
+payloads (backend ``fused_pcr_bf16``) are the pair sweep's bf16 mode:
+``pcr_sweep_bf16.cu``'s entry, the first launch writing float32, the
+second bfloat16.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from ..kernels.build import LaunchCounter
 from .pair_sweep import check_inputs, pair_sweep_ref
 
 launches = LaunchCounter()     # one per local iteration
+bf16_launches = LaunchCounter()   # the same, bf16 payloads
 # the longest line the kernel holds in shared memory: the pair kernel's
 # line cap (pallas_sweep_nl.py:70), which the dispatch keeps
 MAX_N = 256
@@ -32,7 +36,7 @@ MAX_N = 256
 def pcr_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
               exact: bool, gmerge: bool, flags=None):
     """Two local iterations of direction ``axis``; returns (out4, tn4).
-    Arguments as ``pair_sweep.pair_sweep``."""
+    Arguments and payload dtypes as ``pair_sweep.pair_sweep``."""
     s = check_inputs(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis,
                      flags=flags)
     if temp4.device.type == "cpu":
@@ -43,30 +47,37 @@ def pcr_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,
     if cls.shape[axis] > MAX_N:
         raise ValueError(f"pcr_sweep takes lines of at most {MAX_N} cells, "
                          f"got {cls.shape[axis]}")
+    counter = bf16_launches if rhs4.dtype == torch.bfloat16 else launches
     out1, tn1 = _launch(temp4, cls, bcv, bct, rhs4, out_prev4, flags, s,
-                        axis, exact, False)
-    launches.count += 1
+                        axis, exact, False, torch.float32)
+    counter.count += 1
     out4, tn4 = _launch(tn1, cls, bcv, bct, rhs4, out1, flags, s, axis,
-                        exact, gmerge)
-    launches.count += 1
+                        exact, gmerge, rhs4.dtype)
+    counter.count += 1
     return out4, tn4
 
 
-def _launch(temp4, cls, bcv, bct, rhs4, op4, flags, s, axis, exact, gmerge):
-    """One launch of ``pcr_sweep.cu``: one local iteration."""
+def _launch(temp4, cls, bcv, bct, rhs4, op4, flags, s, axis, exact, gmerge,
+            out_dtype):
+    """One launch of ``pcr_sweep.cu``: one local iteration, out and tn of
+    ``out_dtype``; a bfloat16 ``rhs4`` takes the bf16 entry."""
     from ..kernels.build import load_library
     lib = load_library().lib
-    out4 = torch.empty_like(temp4)
-    tn4 = torch.empty_like(temp4)
+    bf16 = rhs4.dtype == torch.bfloat16
+    out4 = torch.empty_like(temp4, dtype=out_dtype)
+    tn4 = torch.empty_like(temp4, dtype=out_dtype)
     nx, ny, nz = cls.shape
+    pay = ((int(op4.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16)) if bf16 else ())
+    fn = lib.cmcfs_pcr_sweep_iter_bf16 if bf16 else lib.cmcfs_pcr_sweep_iter
     with torch.cuda.device(temp4.device):
         stream = torch.cuda.current_stream(temp4.device).cuda_stream
-        err = lib.cmcfs_pcr_sweep_iter(
-            temp4.data_ptr(), cls.data_ptr(), bcv.data_ptr(), bct.data_ptr(),
-            rhs4.data_ptr(), op4.data_ptr(),
-            None if flags is None else flags.data_ptr(), out4.data_ptr(),
-            tn4.data_ptr(), nx, ny, nz, axis, int(exact), int(gmerge),
-            *(float(x) for x in s), stream)
+        err = fn(temp4.data_ptr(), cls.data_ptr(), bcv.data_ptr(),
+                 bct.data_ptr(), rhs4.data_ptr(), op4.data_ptr(),
+                 None if flags is None else flags.data_ptr(),
+                 out4.data_ptr(), tn4.data_ptr(), nx, ny, nz, axis,
+                 int(exact), int(gmerge), *(float(x) for x in s), *pay,
+                 stream)
     if err != 0:
         raise RuntimeError(f"pcr_sweep kernel launch failed: CUDA error {err} "
                            f"(shape {tuple(cls.shape)}, axis {axis})")

@@ -28,6 +28,12 @@ Both entry points dispatch on the tensors' device: CUDA tensors launch
 the stream entry point of ``kernels/csrc/pair_sweep.cu`` (it shares the
 pair sweep's per-iteration device code) or raise; CPU tensors run the
 plain PyTorch version (``stream_sweep_ref``, ``stream_sweep_2d_ref``).
+
+bf16 payloads (pallas_sweep_stream.py:28, :93-110, :447-452): with
+``rhs`` and ``out_prev`` in bfloat16, both are read upcast, the iteration
+runs in float32 and out and tn come back rounded to bfloat16; ``temp``
+and the forcing stay float32.  On the card it is the bf16 entry
+(``stream_sweep_bf16.cu``), counted in ``bf16_launches``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from .tridiag_rows import tridiag_rows_ref
 _F = np.float32
 
 launches = LaunchCounter()
+bf16_launches = LaunchCounter()   # the bf16 payloads, 3D and 2D
 
 
 def stream_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
@@ -59,9 +66,14 @@ def stream_sweep(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
     if temp4.device.type != "cuda":
         raise RuntimeError(f"stream_sweep has no kernel for {temp4.device}")
     out = launch_iteration(temp4, cls, bcv, bct, rhs4, out_prev4, forcing,
-                           new_scratch(4, cls, axis), s, axis, exact, False)
-    launches.count += 1
+                           new_scratch(4, cls, axis), s, axis, exact, False,
+                           out_dtype=rhs4.dtype)
+    _counter(rhs4).count += 1
     return out
+
+
+def _counter(rhs):
+    return bf16_launches if rhs.dtype == torch.bfloat16 else launches
 
 
 def _check_forcing(forcing, temp, cls):
@@ -74,10 +86,14 @@ def _check_forcing(forcing, temp, cls):
 
 def stream_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, forcing, scal,
                      axis: int, exact: bool):
-    """Plain PyTorch stream sweep on any device; returns (out4, tn4)."""
+    """Plain PyTorch stream sweep on any device; returns (out4, tn4) in
+    the payloads' dtype (bf16: upcast in, float32 iteration, rounded
+    out)."""
     s = np.asarray(scal, dtype=np.float32)
-    return iteration_ref(temp4, cls, bcv, bct, rhs4, out_prev4, s, axis,
-                         exact, False, forcing=forcing)
+    out, tn = iteration_ref(temp4, cls, bcv, bct, rhs4.float(),
+                            out_prev4.float(), s, axis, exact, False,
+                            forcing=forcing)
+    return out.to(rhs4.dtype), tn.to(rhs4.dtype)
 
 
 def stream_sweep_2d(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
@@ -95,14 +111,19 @@ def stream_sweep_2d(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
     out3, tn3 = launch_iteration(
         temp3[:, None], cls[None], bct[None], bct[None], rhs3[:, None],
         out_prev3[:, None], forcing[None], new_scratch(3, cls, axis), s,
-        axis + 1, exact, False, axis_var=axis, first=first)
-    launches.count += 1
+        axis + 1, exact, False, axis_var=axis, first=first,
+        out_dtype=rhs3.dtype)
+    _counter(rhs3).count += 1
     return out3.squeeze(1), tn3.squeeze(1)
 
 
 def stream_sweep_2d_ref(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
                         axis: int, exact: bool, first: bool):
-    """Plain PyTorch 2D stream sweep on any device; returns (out3, tn3)."""
+    """Plain PyTorch 2D stream sweep on any device; returns (out3, tn3)
+    in the payloads' dtype (bf16: upcast in, float32 iteration, rounded
+    out)."""
+    pay = rhs3.dtype
+    rhs3, out_prev3 = rhs3.float(), out_prev3.float()
     v_vis_h2, t_vis_h2, inv_dt, inv2h, v_T = np.asarray(scal, dtype=_F)
     adv2h = temp3[axis] * inv2h
     free = bct == BCtype.FREE
@@ -121,4 +142,4 @@ def stream_sweep_2d_ref(temp3, cls, bct, rhs3, out_prev3, forcing, scal,
     x = tridiag_rows_ref(a, b, c, d, axis=axis + 1, exact=exact)
     out = torch.where(interior, x, out_prev3)
     tn = torch.where(interior, x if first else (temp3 + x) * 0.5, temp3)
-    return out, tn
+    return out.to(pay), tn.to(pay)

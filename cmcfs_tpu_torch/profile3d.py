@@ -90,7 +90,7 @@ def main(argv=None) -> int:
     print(f"grid {grid.dimx}x{grid.dimy}x{grid.dimz}, ng={num_global} "
           f"nl={num_local}, exact={solver.exact}; dispatch: "
           f"backend={rep['backend']} pad={rep['pad']} pcr={rep['pcr']} "
-          f"dirs={rep['dirs']}; dual planes "
+          f"bf16={rep['bf16']} dirs={rep['dirs']}; dual planes "
           f"{[f is not None for f in solver.ga.dual_flags]}")
 
     def step():

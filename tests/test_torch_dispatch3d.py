@@ -66,6 +66,7 @@ def test_dispatch_report_auto_is_fused_nl():
     rep = tadi.dispatch_report((384, 384, 384), (False,) * 3, "auto", 2,
                                (True, True, True))
     assert rep == {"backend": "fused_nl", "pad": None, "pcr": False,
+                   "bf16": False,
                    "dirs": {"X": "fallback", "Y": "fallback",
                             "Z": "fallback"}}
     rep = tadi.dispatch_report((250, 250, 250), (False,) * 3, "auto", 2,

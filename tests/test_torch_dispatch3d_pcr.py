@@ -5,8 +5,9 @@ and grids with FREE duals on one or more axes, at num_local 1 to 4, over
 test_torch_dispatch3d.py's shapes and merge_ok cases.  ``dirs``, ``pad``,
 ``backend`` and the ``pcr`` flag must be equal; an even num_local sends
 dual directions to the pair kernel (its second chain), an odd one to the
-fallback, as in cmcfs_tpu (adi3d.py:459-508).  The bf16 backends still
-raise, naming ROADMAP B2.
+fallback, as in cmcfs_tpu (adi3d.py:459-508).  The bf16 backends
+(``fused_bf16``, ``fused_pcr_bf16``), which used to raise, dispatch as
+cmcfs_tpu's, ``bf16`` and ``pcr`` flags included.
 """
 import itertools
 
@@ -30,7 +31,7 @@ def test_dispatch_report_pcr_and_duals_match_jax(shape):
         want = jadi.dispatch_report(shape, ga, backend, nl, mok)
         got = tadi.dispatch_report(shape, duals, backend, nl, mok)
         case = (shape, backend, nl, mok, duals)
-        for key in ("dirs", "pad", "backend", "pcr"):
+        for key in ("dirs", "pad", "backend", "pcr", "bf16"):
             assert got[key] == want[key], (key, case)
 
 
@@ -48,5 +49,14 @@ def test_dual_directions_pair_at_even_num_local():
 
 @pytest.mark.parametrize("backend", ["fused_bf16", "fused_pcr_bf16"])
 def test_bf16_backends_raise_naming_b2(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        tadi.dispatch_report((16, 12, 12), (False,) * 3, backend, 2)
+    """The bf16 backends no longer raise: their dispatch equals cmcfs_tpu's
+    over the shapes, num_local, merge_ok and duals of the test above, with
+    ``bf16`` set and ``pcr`` set for ``fused_pcr_bf16``."""
+    for shape, nl, mok, duals in itertools.product(SHAPES, (1, 2, 3, 4),
+                                                   MERGE, DUALS):
+        ga = _Duals(tuple(object() if d else None for d in duals))
+        want = jadi.dispatch_report(shape, ga, backend, nl, mok)
+        got = tadi.dispatch_report(shape, duals, backend, nl, mok)
+        for key in ("dirs", "pad", "backend", "pcr", "bf16"):
+            assert got[key] == want[key], (key, shape, nl, mok, duals)
+        assert got["bf16"] and got["pcr"] == (backend == "fused_pcr_bf16")

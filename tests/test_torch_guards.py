@@ -113,47 +113,74 @@ def _box():
 @pytest.mark.parametrize("case", ["pcr", "fused_pcr", "fused_pcr_bf16",
                                   "fused_bf16"])
 def test_unported_dispatch_raises(case):
-    """The bf16 backends, whose payload mode is not ported, raise naming
-    ROADMAP B2 and fall through to no other path.  ``pcr`` and
-    ``fused_pcr`` are ported: one step of each on the lid cavity matches
-    cmcfs_tpu's exact-order ``scan`` step within 5e-6, the bound
-    test_backends3d.py holds cmcfs_tpu's own PCR steps to."""
+    """Every backend of these cases used to raise; all are ported now.  One
+    step of each on the lid cavity against cmcfs_tpu's exact-order
+    ``scan`` step: ``pcr`` and ``fused_pcr`` within 5e-6, the bound
+    test_backends3d.py holds cmcfs_tpu's own PCR steps to; the bf16
+    backends (``fused_bf16``, ``fused_pcr_bf16``: the kernels' payloads
+    stored in bf16) within 0.02, the bound of its
+    test_bf16_storage_close_to_f32 and test_fused_pcr_bf16_close_to_f32,
+    with their dispatch (``dirs``, ``pcr``, ``bf16``) equal to
+    cmcfs_tpu's."""
     grid, ga = _box()
     pa = adi3d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
                            grid.dx, grid.dy, grid.dz)
-    if case in ("pcr", "fused_pcr"):
-        _pcr_step_matches_scan(grid, ga, pa, case)
-        return
-    cur = tuple(torch.zeros(ga.types.shape) for _ in range(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa, backend=case,
-                              merge_ok=(True, True, True))
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        AdiSolver3D(backend=case, device="cpu")
+    _step_matches_scan(grid, ga, pa, case,
+                       5e-6 if case in ("pcr", "fused_pcr") else 0.02)
+    assert AdiSolver3D(backend=case, device="cpu").backend == case
 
 
-def _pcr_step_matches_scan(grid, ga, pa, backend):
+def _step_matches_scan(grid, ga, pa, backend, atol):
     import jax.numpy as jnp
     from cmcfs_tpu.models import adi3d as jadi
     from cmcfs_tpu.models import common3d as jc
     jga, jcur = jc.grid_arrays(grid), jc.init_state(grid)
+    mok = merge_ok(ga)
+    want_rep = jadi.dispatch_report(tuple(ga.types.shape), jga, backend, 2,
+                                    mok)
+    rep = adi3d.dispatch_report(tuple(ga.types.shape), (False,) * 3,
+                                backend, 2, mok)
+    for key in ("dirs", "pcr", "bf16", "backend", "pad"):
+        assert rep[key] == want_rep[key], key
     jpa = jadi.ParamsArgs3D(*(jnp.float32(x) for x in pa))
     want, _ = jadi.adi_timestep_3d(jcur, jcur, jga, jnp.float32(0.01), 1, 2,
                                    jpa, backend="scan")
     cur = init_state(grid, "cpu")
     got, _ = adi3d.adi_timestep_3d(cur, cur, ga, 0.01, 1, 2, pa,
-                                   backend=backend, merge_ok=merge_ok(ga))
+                                   backend=backend, merge_ok=mok)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
-                                   atol=5e-6)
+                                   atol=atol)
 
 
 def test_dispatch_report_names_paths():
     rep = adi3d.dispatch_report((64, 64, 64), (False, False, False), "auto",
                                 3, (True, False, True))
     assert rep == {"backend": "fused_nl", "pad": None, "pcr": False,
+                   "bf16": False,
                    "dirs": {"X": "pair+stream", "Y": "fallback",
                             "Z": "pair+stream"}}
+
+
+def test_bf16_horizon_warning():
+    """The CLI warns of bf16 drift on runs longer than
+    BF16_STEP_WARN_THRESHOLD steps, and only for the bf16 backends (as
+    tests/test_backends3d.py:153-162 holds cmcfs_tpu's), with cmcfs_tpu's
+    words."""
+    from cmcfs_tpu import cli3d as jcli
+    warn = cli3d.bf16_horizon_warning
+    n = cli3d.BF16_STEP_WARN_THRESHOLD
+    assert n == jcli.BF16_STEP_WARN_THRESHOLD == 200
+    assert warn("fused_bf16", n + 1)
+    assert "fused_bf16" in warn("fused_bf16", 1000)
+    assert "fused_pcr_bf16" in warn("fused_pcr_bf16", 1000)
+    assert warn("fused_bf16", 10) is None
+    assert warn("fused_bf16", n) is None
+    assert warn("fused_full", 100000) is None
+    assert warn("scan", 100000) is None
+    for case in (("fused_bf16", 1000), ("fused_pcr_bf16", n + 1),
+                 ("fused_bf16", 10), ("fused_nl", 1000)):
+        assert warn(*case) == jcli.bf16_horizon_warning(*case)
 
 
 @pytest.mark.parametrize("name", ["Explicit", "Stable"])

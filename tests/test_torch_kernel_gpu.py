@@ -20,7 +20,10 @@ chunks and blocks, grid-edge lines, random classes or whole segments;
 the line sweep's alternative Z tiles; the row kernel's k-form), the dual
 pair kernel (the FREE baffle turned onto each axis, and random classes and
 flags on the tiles' edges) and the PCR kernel (n = 40, 200, 255, 256 on
-each axis, with and without duals).
+each axis, with and without duals).  The bf16 payload mode of every kernel
+(``*_bf16_bitwise``: bf16 rhs, out_prev or d in, bf16 out and tn or x out,
+float32 in between) is held to its plain version bit for bit on the same
+edges, with its launches counted apart (``bf16_launches``).
 """
 import numpy as np
 import pytest
@@ -844,3 +847,227 @@ def test_gmerge_subnormal_bitwise(kernel, axis, exact):
             adi3d._nl_scal(axis, pa, 0.01), axis, exact, True, flags)
     for g, w in zip(run(*args), ref(*args)):
         assert _max_err(g, w) == 0.0
+
+
+# the bf16 payload mode: the payloads rounded to bf16, each kernel's bf16
+# entry against its plain version (upcast in, float32 arithmetic, rounded
+# out) bit for bit, launches counted in the module's bf16 counters only
+def _bf16(*ts):
+    return tuple(t.bfloat16() for t in ts)
+
+
+def _bf16_run(counters, n, fn):
+    """fn()'s result, checking that it made n launches on the first of
+    ``counters`` and none on the others."""
+    before = [c.count for c in counters]
+    out = fn()
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [n] + [0] * (len(counters) - 1)
+    return out
+
+
+def _bitwise(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all())
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gmerge", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _EDGE_3D)
+def test_pair_kernel_bf16_bitwise(shape, axis, exact, gmerge):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 30)
+    (cls, bcv, bct), (temp4, rhs4, op4), _ = _edge_fields(rng, shape, 4)
+    args = (temp4, cls, bcv, bct, *_bf16(rhs4, op4), _PAIR_SCAL, axis, exact,
+            gmerge)
+    got = _bf16_run((ps.bf16_launches, ps.launches, ps.dual_bf16_launches),
+                    2, lambda: ps.pair_sweep(*args))
+    _bitwise(got, ps.pair_sweep_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _EDGE_3D)
+def test_pair_kernel_dual_bf16_bitwise(shape, axis, exact):
+    """The dual pair's bf16 mode on random classes and dual planes, gmerge
+    on, and on the FREE baffle turned onto each axis."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 31)
+    (cls, bcv, bct), (temp4, rhs4, op4), _ = _edge_fields(rng, shape, 4)
+    cases = [(temp4, cls, bcv, bct, *_bf16(rhs4, op4), _edge_flags(rng, cls))]
+    if shape == _EDGE_3D[0][0]:
+        (cls, bcv, bct), (temp4, rhs4, op4), flags = _rotated_baffle(axis, 5)
+        cases.append((temp4, cls, bcv, bct, *_bf16(rhs4, op4), flags))
+    for t4, c, bv, bt, r4, o4, fl in cases:
+        args = (t4, c, bv, bt, r4, o4, _PAIR_SCAL, axis, exact,
+                True, fl)
+        got = _bf16_run((ps.dual_bf16_launches, ps.dual_launches,
+                         ps.bf16_launches), 2, lambda: ps.pair_sweep(*args))
+        _bitwise(got, ps.pair_sweep_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("n", [40, 255, 256])
+def test_pcr_kernel_bf16_bitwise(n, axis, dual, exact):
+    """The PCR kernel's bf16 mode, shapes as test_pcr_kernel_bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape = [5, 11]
+    shape.insert(axis, n)
+    rng = np.random.default_rng(n + 10 * axis + 100 * dual + 1)
+    (cls, bcv, bct), (temp4, rhs4, op4), _ = _edge_fields(rng, tuple(shape),
+                                                          4)
+    args = (temp4, cls, bcv, bct, *_bf16(rhs4, op4), _PAIR_SCAL, axis, exact,
+            axis == 0, _edge_flags(rng, cls) if dual else None)
+    got = _bf16_run((pcs.bf16_launches, pcs.launches), 2,
+                    lambda: pcs.pcr_sweep(*args))
+    _bitwise(got, pcs.pcr_sweep_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _EDGE_3D)
+def test_stream_kernel_bf16_bitwise(shape, axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 32)
+    (cls, bcv, bct), (temp4, rhs4, op4), forcing = _edge_fields(rng, shape,
+                                                                4)
+    args = (temp4, cls, bcv, bct, *_bf16(rhs4, op4), forcing, _PAIR_SCAL[:5],
+            axis, exact)
+    got = _bf16_run((ss.bf16_launches, ss.launches), 1,
+                    lambda: ss.stream_sweep(*args))
+    _bitwise(got, ss.stream_sweep_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", [((37, 100), 0), ((100, 37), 1),
+                                         ((256, 33), 0), ((33, 256), 1),
+                                         ((5, 1024), 0), ((1024, 5), 1)])
+def test_stream_sweep_2d_kernel_bf16_bitwise(shape, axis, exact, first):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape) + 10 * axis + 33)
+    (cls, _, bct), (temp3, rhs3, op3), forcing = _edge_fields(
+        rng, shape, 3, segments_axis=axis)
+    scal = np.array([30.0, 20.0, 1000.0, 250.0, 1.0], dtype=np.float32)
+    args = (temp3, cls, bct, *_bf16(rhs3, op3), forcing, scal, axis, exact,
+            first)
+    got = _bf16_run((ss.bf16_launches, ss.launches), 1,
+                    lambda: ss.stream_sweep_2d(*args))
+    _bitwise(got, ss.stream_sweep_2d_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape, axis", _LINE_EDGE_3D)
+def test_line_sweep_kernel_bf16_bitwise(shape, axis, exact):
+    """The line sweep's bf16 mode on the edges of its tiles; on Z also at
+    each tile of Z_ROWS.  Odd lengths put bf16 rows on 2-byte
+    boundaries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    adv, pk, d4, scal = _line_case(shape, axis, 4, sum(shape) + 10 * axis + 3)
+    d4 = d4.bfloat16()
+    want = ls.line_sweep_ref(adv, pk, d4, scal, axis, exact)
+    counters = (ls.bf16_launches, ls.launches)
+    _bitwise(_bf16_run(counters, 1, lambda: ls.line_sweep(
+        adv, pk, d4, scal, axis, exact)), want)
+    for z_rows in (ls.Z_ROWS[1:] if axis == 2 else ()):
+        _bitwise(_bf16_run(counters, 1, lambda: ls._launch(
+            adv, pk, d4, scal, 2, 2, exact, z_rows)), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shape", [(23, 19), (300, 9), (9, 300), (1041, 37)])
+def test_line_sweep_2d_kernel_bf16_bitwise(shape, axis, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    adv, pk, d3, scal = _line_case(shape, axis, 3, sum(shape) + 10 * axis + 4)
+    d3 = d3.bfloat16()
+    got = _bf16_run((ls.bf16_launches, ls.launches), 1,
+                    lambda: ls.line_sweep_2d(adv, pk, d3, scal, axis, exact))
+    _bitwise(got, ls.line_sweep_2d_ref(adv, pk, d3, scal, axis, exact))
+
+
+_PLAIN_3D = {"pair_sweep": ps.pair_sweep_ref, "pcr_sweep": pcs.pcr_sweep_ref,
+             "stream_sweep": ss.stream_sweep_ref,
+             "line_sweep": ls.line_sweep_ref}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend, num_local, baffle", [
+    ("fused_bf16", 2, False), ("fused_bf16", 3, False),
+    ("fused_bf16", 2, True), ("fused_pcr_bf16", 2, False),
+    ("fused_pcr_bf16", 2, True), ("fused_bf16", 1, True)])
+def test_step_bf16_kernels_match_plain(backend, num_local, baffle,
+                                       monkeypatch):
+    """One whole step of each bf16 backend on the card with the bf16
+    kernels against the same step with their plain versions, bit for bit:
+    pair, pair+stream, the dual pair (the baffle at nl 2) and the fallback
+    (the baffle at nl 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ga, pa, cur, _, nxt = _case("cuda", seed=4, baffle=baffle)
+
+    def step():
+        new, _ = adi3d.adi_timestep_3d(
+            tuple(cur), tuple(nxt), ga, 0.01, 2, num_local, pa,
+            backend=backend, exact=False, compute_error=False,
+            merge_ok=merge_ok(ga))
+        return torch.stack(tuple(new))
+
+    counters = (ps.bf16_launches, ps.dual_bf16_launches, pcs.bf16_launches,
+                ss.bf16_launches, ls.bf16_launches)
+    before = sum(c.count for c in counters)
+    got = step()
+    assert sum(c.count for c in counters) > before
+    for name, ref in _PLAIN_3D.items():
+        monkeypatch.setattr(adi3d, name, ref)
+    want = step()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+def test_step_2d_bf16_kernels_match_plain(exact, monkeypatch):
+    """Two 2D ``fused_bf16`` steps on the card with the bf16 line sweep
+    against the same steps with its plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = lid_cavity_2d(48, 40, dx=0.01)
+    ga = common2d.grid_arrays(g, "cuda")
+    pa = adi2d.make_params(FluidParams.normalized(200.0, 0.72, 1.4), g.dx,
+                           g.dy, 1.0)
+
+    def steps():
+        cur = common2d.init_state(g, "cuda")
+        for _ in range(2):
+            cur = common2d.update_boundaries(cur, ga)
+            cur, _, _ = adi2d.adi_timestep_2d(cur, ga, 0.001, 2, 2, pa,
+                                              backend="fused_bf16",
+                                              exact=exact)
+        return torch.stack(tuple(cur))
+
+    before = ls.bf16_launches.count
+    got = steps()
+    assert ls.bf16_launches.count > before
+    monkeypatch.setattr(adi2d, "line_sweep_2d", ls.line_sweep_2d_ref)
+    want = steps()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)

@@ -49,16 +49,21 @@ STEPS = 3
 DT = np.float32(0.001)
 
 
-def run_both(backend, num_local, exact, num_global=2, nx=40, ny=36):
-    """STEPS steps of both packages on one fixture; asserts agreement and
-    that the port's CPU run took no kernel launch."""
+def run_both(backend, num_local, exact, num_global=2, nx=40, ny=36,
+             ref_backend=None, atol=None):
+    """STEPS steps of both packages on one fixture (cmcfs_tpu on
+    ``ref_backend``, by default the same backend); asserts agreement (within
+    ``atol``, by default REL * max|state|) and that the port's CPU run took
+    no kernel launch."""
     ga, pa, temp3, _, _ = setup_case(seed=0, nx=nx, ny=ny, noise=0.01,
                                      params=PARAMS)
     so = jadi.stream_ok_2d(ga)
     jcur = jc.State2D(*(jnp.asarray(f) for f in temp3))
     st, tga, tpa = tc.from_jax_numpy(tuple(temp3), ga, pa, "cpu")
     assert tadi.stream_ok_2d(tga) == so
-    counts = [m.launches.count for m in (ls, ss, tr)]
+    counters = [m.launches for m in (ls, ss, tr)] + [ls.bf16_launches,
+                                                      ss.bf16_launches]
+    counts = [c.count for c in counters]
     tcur = st
     errs = []
     from jax.experimental.pallas import tpu as pltpu
@@ -66,8 +71,8 @@ def run_both(backend, num_local, exact, num_global=2, nx=40, ny=36):
         with pltpu.force_tpu_interpret_mode():
             jcur, je, jit = jadi.adi_timestep_2d(
                 jc.update_boundaries(jcur, ga), ga, jnp.float32(DT),
-                jnp.int32(num_global), num_local, pa, backend=backend,
-                exact=exact,
+                jnp.int32(num_global), num_local, pa,
+                backend=ref_backend or backend, exact=exact,
                 stream_ok=so)
         tcur, te, tit = tadi.adi_timestep_2d(
             tc.update_boundaries(tcur, tga), tga, DT, num_global, num_local,
@@ -75,13 +80,15 @@ def run_both(backend, num_local, exact, num_global=2, nx=40, ny=36):
             backend=backend, exact=exact, stream_ok=so)
         assert tit == int(jit)
         errs.append((float(te), float(je)))
-    assert [m.launches.count for m in (ls, ss, tr)] == counts
+    assert [c.count for c in counters] == counts
     want = np.stack([np.asarray(f) for f in jcur])
     got = torch.stack(tuple(tcur)).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
-                               atol=REL * float(np.abs(want).max()))
-    for te, je in errs:
-        assert abs(te - je) <= 1e-4 * je
+                               atol=atol or REL * float(np.abs(want).max()))
+    if ref_backend is None:
+        for te, je in errs:
+            assert abs(te - je) <= 1e-4 * je
+    return float(np.abs(got - want).max())
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -125,21 +132,25 @@ def test_dispatch_of_bench_sizes():
         == {"X": "rows", "Y": "rows"}
 
 
-@pytest.mark.parametrize("backend, item", [("fused_bf16", "ROADMAP B2"),
-                                           ("pcr", None)])
-def test_unported_backends_raise(backend, item):
-    """``fused_bf16`` raises naming its ROADMAP item; ``pcr``, which used
-    to, is ported: the rows path, stepping as cmcfs_tpu's ``pcr`` step."""
-    if item is None:
+@pytest.mark.parametrize("backend", [
+    pytest.param("fused_bf16", id="fused_bf16-ROADMAP B2"),
+    pytest.param("pcr", id="pcr-None")])
+def test_unported_backends_raise(backend):
+    """Both backends used to raise and are ported.  ``pcr``: the rows path,
+    stepping as cmcfs_tpu's ``pcr`` step.  ``fused_bf16``: the line path
+    on both axes whatever ``stream_ok`` (cmcfs_tpu never streams it), its
+    three steps within 0.02 of cmcfs_tpu's ``scan`` steps, the bound of
+    test_backends2d.py's bf16 case (the same backend against cmcfs_tpu's:
+    test_torch_step2d_bf16.py)."""
+    assert AdiSolver2D(backend=backend, device="cpu").backend == backend
+    if backend == "pcr":
         assert tadi.dispatch_report_2d((40, 36), backend) == {
             "X": "rows", "Y": "rows"}
-        assert AdiSolver2D(backend=backend, device="cpu").backend == backend
         run_both(backend, 2, True)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        AdiSolver2D(backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        tadi.dispatch_report_2d((40, 36), backend)
+    assert tadi.dispatch_report_2d((40, 36), backend, (True, True)) == {
+        "X": "line", "Y": "line"}
+    run_both(backend, 2, True, ref_backend="scan", atol=0.02)
 
 
 @pytest.mark.parametrize("name", ["Explicit", "Stable"])
