@@ -8,7 +8,9 @@ and nvcc.  Phases, each of which raises on failure:
 
 1. device: card name, power limit, torch / CUDA / nvcc versions;
 2. build: nvcc builds cmcfs_tpu_torch/kernels/csrc/*.cu for sm_90a, one
-   process per source;
+   process per source; every kernel's registers and spills from the
+   build's ``ptxas -v`` log (float32, bf16 and PCR instantiations alike),
+   failing if a PCR or bf16 instantiation spills;
 3. pair kernel vs plain: the pair-sweep kernel against its plain PyTorch
    version on the 256^3 bench box, X / Y / Z, both ``exact`` modes,
    gmerge on X, with CUDA-event times of both and the GB/s that the
@@ -74,18 +76,22 @@ and nvcc.  Phases, each of which raises on failure:
 17. PCR: ``run_case`` on the 256^3 box with backend ``fused_pcr`` at ng=4
    nl=2: all three directions ``pair`` on the PCR kernel (24 launches a
    step), ms/step; the PCR kernel against its plain version on X, Y and
-   Z, both ``exact`` modes (and with the baffle's duals on X); one step
+   Z and with the baffle's duals on X, both ``exact`` modes, float32 and
+   bf16 payloads (bf16 bit for bit), each timed; every PCR
+   instantiation's registers, local memory and blocks an SM as the card
+   reports them (failing on local memory or under two blocks); one step
    against the ``fused_nl`` step from the same state (PCR against
    Thomas: not bit for bit, held to the same bound); one step at nl=3
    (``pair+stream``: the trailing iteration on the stream sweep); one
    ``fused_pcr`` step on the baffle grid (PCR with the dual chains)
    against its ``auto`` step;
 18. bf16 payloads: every bf16 kernel mode against its plain version bit
-   for bit, with CUDA-event times of both, both ``exact`` modes (the pair,
-   PCR, stream and line sweeps on the 256^3 box, X / Y / Z, the line
-   sweep's Z at each tile; the dual pair on the baffle turned onto each
-   axis and PCR with its duals on X; the 2D stream at 1024^2, the 2D line
-   at 2048^2 and on the 1041^2 box; the line sweep at 383^3); then
+   for bit, with CUDA-event times of it, of its float32 twin on the same
+   inputs and of the plain version, both ``exact`` modes (the pair,
+   stream and line sweeps on the 256^3 box, X / Y / Z, the line sweep's
+   Z at each tile; the dual pair on the baffle turned onto each axis; the
+   2D stream at 1024^2, the 2D line at 2048^2 and on the 1041^2 box; the
+   line sweep at 383^3; bf16 PCR: phase 17); then
    ``run_case`` on the 256^3 box with ``fused_bf16`` (all ``pair``, 24
    bf16 pair launches a step) and with ``fused_pcr_bf16`` (24 bf16 PCR
    launches), ms/step in both modes, a whole step kernels against plain
@@ -372,6 +378,37 @@ def twin_err(what: str, bf4, f4) -> float:
     return max(errs)
 
 
+def ptxas_rows(log: str) -> list:
+    """(source, registers, spill-store bytes, spill-load bytes, kernel) of
+    every kernel in the build's ``ptxas -v`` log (build.py heads each
+    source's part with ``== nvcc <source>``), names demangled by the
+    toolkit's cu++filt where it has one, template arguments kept."""
+    import re
+    rows, src, fn, spill = [], "?", None, (0, 0)
+    for line in log.splitlines():
+        if line.startswith("== nvcc "):
+            src = line[len("== nvcc "):].strip()
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            rows.append([src, int(m.group(1)), *spill, fn])
+            fn = None
+    from cmcfs_tpu_torch.kernels import build
+    filt = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    if rows and os.path.isfile(filt):
+        out = subprocess.run([filt], input="\n".join(r[4] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, nm in zip(rows, names):
+                nm = nm.replace("(anonymous namespace)::", "")
+                r[4] = nm[:nm.rfind(">(") + 1] if ">(" in nm else nm
+    return [tuple(r) for r in rows]
+
+
 class Counters:
     """The launch counters of every kernel wrapper of the port."""
 
@@ -423,9 +460,17 @@ def main() -> int:
     print(f"built {klib.path} in {klib.build_seconds:.2f} s "
           f"(load total {time.perf_counter() - t0:.2f} s), flags "
           f"{' '.join(build.NVCC_FLAGS)}")
-    for line in klib.nvcc_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    rows = ptxas_rows(klib.nvcc_log)
+    if not rows:
+        print("ptxas -v: the library was built before this run, no log")
+    print(f"ptxas -v, {len(rows)} kernels: source, registers a thread, "
+          f"spill stores / loads (bytes), kernel")
+    for src, regs, st, ld, fn in rows:
+        print(f"  {src:<22}{regs:>5}{st:>6}{ld:>6}  {fn}")
+    spilled = [r for r in rows
+               if (r[0].startswith("pcr_") or "bf16" in r[0]) and r[2] + r[3]]
+    if spilled:
+        fail(f"PCR or bf16 instantiations spill: {spilled}")
 
     from scripts.gen_box_case import gen
     from cmcfs_tpu_torch import cli3d
@@ -1312,36 +1357,64 @@ def main() -> int:
     timing["256 fused_pcr"] = time_steps(psolver, dt, NUM_LOCAL, TIMED_STEPS,
                                          math.prod(shape))
     temp4, rhs4, op4 = noisy_state(psolver.ga, grid, gen_t)
-    k_ms, p_ms, worst = [], [], 0.0
-    print(f"{'dir':<7}{'exact':<7}{'max|d out|':>12}{'max|d tn|':>12}"
-          f"{'kernel ms':>11}{'plain ms':>10}")
+    # (kernel ms, plain ms) of the float32 and the bf16 payloads
+    pcr_ms = {"f32": ([], []), "bf16": ([], [])}
+    worst = 0.0
+    print(f"{'dir':<12}{'exact':<7}{'payload':<9}{'max|d out|':>12}"
+          f"{'max|d tn|':>12}{'kernel ms':>11}{'plain ms':>10}")
     cases = [(axis, exact, None) for axis in range(3)
-             for exact in (True, False)] + [(0, False, "baffle")]
+             for exact in (True, False)] + [(0, exact, "baffle")
+                                            for exact in (True, False)]
     for axis, exact, which in cases:
         if which is None:
-            args = (temp4, psolver.ga.cls_a[axis], psolver.ga.bc_vel,
-                    psolver.ga.bc_temp, rhs4, op4,
-                    adi3d._nl_scal(axis, pa, dt), axis, exact, axis == 0,
+            ops = (temp4, psolver.ga.cls_a[axis], psolver.ga.bc_vel,
+                   psolver.ga.bc_temp, rhs4, op4)
+            tail = (adi3d._nl_scal(axis, pa, dt), axis, exact, axis == 0,
                     None)
         else:
-            args = x_args[:6] + (adi3d._nl_scal(0, bsolver.pa, BAFFLE_DT), 0,
-                                 exact, True, x_args[6])
-        ok4, tk4 = pcs.pcr_sweep(*args)
-        op4r, tp4r = pcs.pcr_sweep_ref(*args)
-        torch.cuda.synchronize()
-        label = "XYZ"[axis] + (" dual" if which else "")
-        eo = check_close(f"pcr {label} {exact} out", ok4, op4r)
-        et = check_close(f"pcr {label} {exact} tn", tk4, tp4r)
-        worst = max(worst, eo, et)
-        tk, tp = in_turns(lambda: pcs.pcr_sweep(*args),
-                          lambda: pcs.pcr_sweep_ref(*args), 5, 1)
-        if which is None:
-            k_ms.append(tk)
-            p_ms.append(tp)
-        print(f"{label:<7}{str(exact):<7}{eo:>12.3e}{et:>12.3e}{tk:>11.3f}"
-              f"{tp:>10.2f}", flush=True)
+            ops = x_args[:6]
+            tail = (adi3d._nl_scal(0, bsolver.pa, BAFFLE_DT), 0, exact, True,
+                    x_args[6])
+        for pay in ("f32", "bf16"):
+            args = ops[:4] + (ops[4:] if pay == "f32" else tuple(
+                t.bfloat16() for t in ops[4:])) + tail
+            ok4, tk4 = pcs.pcr_sweep(*args)
+            op4r, tp4r = pcs.pcr_sweep_ref(*args)
+            torch.cuda.synchronize()
+            label = "XYZ"[axis] + (" baffle" if which else "")
+            what = f"pcr {label} {exact} {pay}"
+            if pay == "f32":
+                eo = check_close(what + " out", ok4, op4r)
+                et = check_close(what + " tn", tk4, tp4r)
+                worst = max(worst, eo, et)
+            elif not all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                         and bool(torch.isfinite(a.float()).all())
+                         for a, b in ((ok4, op4r), (tk4, tp4r))):
+                fail(f"{what}: the bf16 kernel and its plain version are "
+                     "not bit for bit")
+            else:
+                eo = et = 0.0
+            tk, tp = in_turns(lambda: pcs.pcr_sweep(*args),
+                              lambda: pcs.pcr_sweep_ref(*args), 5, 1)
+            if which is None:
+                pcr_ms[pay][0].append(tk)
+                pcr_ms[pay][1].append(tp)
+            print(f"{label:<12}{str(exact):<7}{pay:<9}{eo:>12.3e}{et:>12.3e}"
+                  f"{tk:>11.3f}{tp:>10.2f}", flush=True)
     print(f"(times per pair = 2 kernel launches; {smi})")
-    note("pcr_sweep", worst, k_ms, p_ms, math.prod(shape))
+    note("pcr_sweep", worst, *pcr_ms["f32"], math.prod(shape))
+    print("PCR instantiations at n = 256: registers a thread, local memory "
+          "a thread (bytes; 0: no spills), blocks an SM, shared bytes")
+    for pay in pcs.PAYLOADS:
+        for axis, tile in ((0, "X/Y"), (2, "Z")):
+            for exact in (True, False):
+                for dual in (False, True):
+                    info = pcs.kernel_info(256, axis, exact, dual, pay)
+                    print(f"  {pay:<9}{tile:<4}exact={exact!s:<6}"
+                          f"dual={dual!s:<6}{json.dumps(info)}")
+                    if info["local_bytes"] or info["blocks_per_sm"] < 2:
+                        fail(f"PCR {pay} {tile} exact={exact} dual={dual}: "
+                             f"{info}")
     del temp4, rhs4, op4, ok4, tk4, op4r, tp4r, x_args, args
     psolver.update_boundaries()
     p_args = (psolver.cur, psolver.next, psolver.ga, dt, NUM_GLOBAL)
@@ -1387,14 +1460,20 @@ def main() -> int:
     phase("18. bf16 payloads: every bf16 kernel mode against its plain "
           "version bit for bit; the fused_bf16 and fused_pcr_bf16 slices; "
           "bf16 steps against their float32 twins")
+    # (bf16 kernel ms, plain ms) by kernel; the bf16 PCR pair's from
+    # phase 17
     bf16_ms = {k: ([], []) for k in ("pair_sweep_bf16", "pair_sweep_dual_bf16",
-                                     "pcr_sweep_bf16", "stream_sweep_bf16",
+                                     "stream_sweep_bf16",
                                      "stream_sweep_2d_bf16", "line_sweep_bf16",
                                      "line_sweep_2d_bf16")}
+    bf16_ms["pcr_sweep_bf16"] = pcr_ms["bf16"]
 
-    def bitwise(kernel, label, run, plain, keep=True, k_reps=5, p_reps=1):
+    def bitwise(kernel, label, run, plain, twin, keep=True, k_reps=5,
+                p_reps=1):
         """run() against plain() bit for bit (bf16 tensors, or tuples of
-        them), both timed in turns; the times go to the kernel's record
+        them); run(), its float32 twin twin() on the same inputs before
+        their rounding to bf16, and plain() timed in turns (plain, kernel,
+        twin, twin, kernel, plain); the times go to the kernel's record
         where ``keep``."""
         outs_k, outs_p = run(), plain()
         torch.cuda.synchronize()
@@ -1407,15 +1486,20 @@ def main() -> int:
                 fail(f"{kernel} {label}: the bf16 kernel and its plain "
                      f"version are not bit for bit "
                      f"({int((a.float() != b.float()).sum())} cells differ)")
-        tk, tp = in_turns(run, plain, k_reps, p_reps)
+        tp = cuda_ms(plain, p_reps)
+        tk = cuda_ms(run, k_reps)
+        tw = cuda_ms(twin, k_reps)
+        tw = (tw + cuda_ms(twin, k_reps)) / 2
+        tk = (tk + cuda_ms(run, k_reps)) / 2
+        tp = (tp + cuda_ms(plain, p_reps)) / 2
         if keep:
             bf16_ms[kernel][0].append(tk)
             bf16_ms[kernel][1].append(tp)
-        print(f"{kernel:<22}{label:<26}{'0':>8}{tk:>11.3f}{tp:>10.2f}",
-              flush=True)
+        print(f"{kernel:<22}{label:<26}{'0':>8}{tk:>11.3f}{tw:>10.3f}"
+              f"{tp:>10.2f}", flush=True)
 
-    print(f"{'kernel':<22}{'case':<26}{'max|d|':>8}{'kernel ms':>11}"
-          f"{'plain ms':>10}")
+    print(f"{'kernel':<22}{'case':<26}{'max|d|':>8}{'bf16 ms':>11}"
+          f"{'f32 ms':>10}{'plain ms':>10}")
     ga = grid_arrays(grid, dev)
     temp4, rhs4, op4 = noisy_state(ga, grid, gen_t)
     rb, ob = rhs4.bfloat16(), op4.bfloat16()
@@ -1423,36 +1507,40 @@ def main() -> int:
         scal = adi3d._nl_scal(axis, pa, dt)
         forcing = pa.t_phi * adi3d._DISS[axis](temp4[0], temp4[1], temp4[2],
                                                pa.dx, pa.dy, pa.dz)
-        d4 = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga, pa,
-                                              scal[2]),
-                          ga.cls_a[axis]).bfloat16()
+        d4f = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga, pa,
+                                               scal[2]), ga.cls_a[axis])
+        d4 = d4f.bfloat16()
         for exact in (True, False):
             lab = f"256 {'XYZ'[axis]} exact={exact}"
-            args = (temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp, rb, ob,
-                    scal, axis, exact, axis == 0)
+            masks3 = (ga.cls_a[axis], ga.bc_vel, ga.bc_temp)
+            args = (temp4, *masks3, rb, ob, scal, axis, exact, axis == 0)
+            fargs = (temp4, *masks3, rhs4, op4) + args[6:]
             bitwise("pair_sweep_bf16", lab, lambda: ps.pair_sweep(*args),
-                    lambda: ps.pair_sweep_ref(*args))
-            bitwise("pcr_sweep_bf16", lab, lambda: pcs.pcr_sweep(*args),
-                    lambda: pcs.pcr_sweep_ref(*args))
-            sargs = (temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp, rb, ob,
-                     forcing, scal[:5], axis, exact)
+                    lambda: ps.pair_sweep_ref(*args),
+                    lambda: ps.pair_sweep(*fargs))
+            sargs = (temp4, *masks3, rb, ob, forcing, scal[:5], axis, exact)
+            sfargs = (temp4, *masks3, rhs4, op4) + sargs[6:]
             bitwise("stream_sweep_bf16", lab,
                     lambda: ss.stream_sweep(*sargs),
-                    lambda: ss.stream_sweep_ref(*sargs))
+                    lambda: ss.stream_sweep_ref(*sargs),
+                    lambda: ss.stream_sweep(*sfargs))
             largs = (temp4[axis], ga.pk_a[axis], d4, scal[:4], axis, exact)
+            lfargs = largs[:2] + (d4f,) + largs[3:]
             bitwise("line_sweep_bf16", lab, lambda: ls.line_sweep(*largs),
-                    lambda: ls.line_sweep_ref(*largs), keep=False, k_reps=3)
+                    lambda: ls.line_sweep_ref(*largs),
+                    lambda: ls.line_sweep(*lfargs), keep=False, k_reps=3)
             for r in (ls.Z_ROWS[1:] if axis == 2 else ()):
                 bitwise("line_sweep_bf16", lab + f" R={r}",
                         lambda: ls._launch(*largs[:4], 2, 2, exact, r),
-                        lambda: ls.line_sweep_ref(*largs), keep=False,
-                        k_reps=3)
-        del forcing, d4
-    print(f"(pair and PCR times per pair = 2 launches; {smi})")
+                        lambda: ls.line_sweep_ref(*largs),
+                        lambda: ls._launch(*lfargs[:4], 2, 2, exact, r),
+                        keep=False, k_reps=3)
+        del forcing, d4, d4f
+    print(f"(pair times per pair = 2 launches; {smi})")
     del temp4, rhs4, op4, rb, ob, ga
     torch.cuda.empty_cache()
-    # the FREE baffle turned onto each axis: the dual pair; PCR with its
-    # duals on X
+    # the FREE baffle turned onto each axis: the dual pair (PCR with its
+    # duals: phase 17)
     bsolver = make_solver_3d("ADI", backend="fused_bf16", device=dev)
     bsolver.init(bgrid, FluidParams.normalized(200.0, 0.72, 1.4))
     btemp4, brhs4, bop4 = noisy_state(bsolver.ga, bgrid, gen_t)
@@ -1464,13 +1552,12 @@ def main() -> int:
             lab = f"baffle {'XYZ'[axis]} exact={exact}"
             args = (temp4a, cls, bcv, bct, rhs4a.bfloat16(), op4a.bfloat16(),
                     scal, axis, exact, True, flags)
+            fargs = (temp4a, cls, bcv, bct, rhs4a, op4a) + args[6:]
             bitwise("pair_sweep_dual_bf16", lab,
                     lambda: ps.pair_sweep(*args),
-                    lambda: ps.pair_sweep_ref(*args))
-            if axis == 0:
-                bitwise("pcr_sweep_bf16", lab, lambda: pcs.pcr_sweep(*args),
-                        lambda: pcs.pcr_sweep_ref(*args), keep=False)
-        del temp4a, rhs4a, op4a, args
+                    lambda: ps.pair_sweep_ref(*args),
+                    lambda: ps.pair_sweep(*fargs))
+        del temp4a, rhs4a, op4a, args, fargs
     del btemp4, brhs4, bop4
     # the 2D modes: the stream sweep at 1024^2, the line sweep at 2048^2
     # and on the 1041^2 box
@@ -1483,10 +1570,12 @@ def main() -> int:
             for exact in (True, False):
                 a2 = (t3, cl3, bct3, r3.bfloat16(), o3.bfloat16(), f3, s3,
                       axis, exact, first)
+                f2 = (t3, cl3, bct3, r3, o3) + a2[5:]
                 bitwise("stream_sweep_2d_bf16",
                         f"1024 {'XY'[axis]} exact={exact} first={first}",
                         lambda: ss.stream_sweep_2d(*a2),
-                        lambda: ss.stream_sweep_2d_ref(*a2))
+                        lambda: ss.stream_sweep_2d_ref(*a2),
+                        lambda: ss.stream_sweep_2d(*f2))
     for label, grid2 in (("2048", lid_cavity_2d(2048, 2048, dx=0.001)),
                          ("1041 box", box_grid)):
         ga2, pa2, cur2, temp2, _ = noisy_2d(grid2)
@@ -1495,12 +1584,14 @@ def main() -> int:
                                                 pa2)
             for exact in (True, False):
                 a2 = (adv2, pk2, d3.bfloat16(), s2, axis, exact)
+                f2 = (adv2, pk2, d3) + a2[3:]
                 bitwise("line_sweep_2d_bf16",
                         f"{label} {'XY'[axis]} exact={exact}",
                         lambda: ls.line_sweep_2d(*a2),
                         lambda: ls.line_sweep_2d_ref(*a2),
+                        lambda: ls.line_sweep_2d(*f2),
                         keep=label == "2048")
-    del ga2, cur2, temp2, out2, a2, d3
+    del ga2, cur2, temp2, out2, a2, f2, d3
     torch.cuda.empty_cache()
 
     # the fused_bf16 slice through the CLI, 256^3: every direction on the
@@ -1598,16 +1689,19 @@ def main() -> int:
     rhs4 = torch.stack(tuple(lsolver.next))
     for axis in range(3):
         scal = adi3d._nl_scal(axis, lsolver.pa, dt_l)
-        d4 = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga_l,
-                                              lsolver.pa, scal[2]),
-                          ga_l.cls_a[axis]).bfloat16()
+        d4f = adi3d.fold_d(*adi3d.fallback_rhs(axis, rhs4, temp4, ga_l,
+                                               lsolver.pa, scal[2]),
+                           ga_l.cls_a[axis])
         for exact in (True, False):
-            largs = (temp4[axis], ga_l.pk_a[axis], d4, scal[:4], axis, exact)
+            largs = (temp4[axis], ga_l.pk_a[axis], d4f.bfloat16(), scal[:4],
+                     axis, exact)
+            lfargs = largs[:2] + (d4f,) + largs[3:]
             bitwise("line_sweep_bf16", f"383 {'XYZ'[axis]} exact={exact}",
                     lambda: ls.line_sweep(*largs),
-                    lambda: ls.line_sweep_ref(*largs), k_reps=3)
-        del d4
-    del lsolver, ga_l, temp4, rhs4, largs
+                    lambda: ls.line_sweep_ref(*largs),
+                    lambda: ls.line_sweep(*lfargs), k_reps=3)
+        del d4f
+    del lsolver, ga_l, temp4, rhs4, largs, lfargs
     torch.cuda.empty_cache()
 
     # 2D: fused_bf16 runs the line sweep at 2048^2, at 1024^2 (where

@@ -43,6 +43,9 @@ SIGNATURES = {
                                    + [_I] * 2 + [_P], _I),
     "cmcfs_pcr_sweep_iter_bf16": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_I] * 2
                                   + [_P], _I),
+    # a PCR instantiation's registers, local memory, blocks an SM, shared
+    "cmcfs_pcr_sweep_info": ([_I] * 4 + [_P], _I),
+    "cmcfs_pcr_sweep_info_bf16": ([_I] * 6 + [_P], _I),
     "cmcfs_stream_sweep_iter_bf16": ([_P] * 10 + [_I] * 8 + [_F] * 5 + [_P],
                                      _I),
     "cmcfs_line_sweep_bf16": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P], _I),
@@ -102,7 +105,8 @@ def _digest(srcs) -> str:
 
 
 def _run(cmds: list[list[str]]) -> str:
-    """Run the commands in parallel; raise on the first failure."""
+    """Run the commands in parallel; raise on the first failure.  Returns
+    their output, each command's under a line naming its last argument."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -111,7 +115,8 @@ def _run(cmds: list[list[str]]) -> str:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                f"{' '.join(cmd)}\n{log}")
-    return "".join(logs)
+    return "".join(f"== nvcc {os.path.basename(cmd[-1])}\n{log}"
+                   for cmd, log in zip(cmds, logs))
 
 
 @functools.lru_cache(maxsize=None)

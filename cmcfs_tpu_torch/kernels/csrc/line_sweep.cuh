@@ -17,10 +17,11 @@
 //   plain PyTorch version (ops/line_sweep.line_sweep_ref) repeats.
 // The bf16 payload mode (the d type TD) replaces the TPU kernels' bf16
 //   storage (pallas_sweep_dma.py:38, :79-81, :263; pallas_sweep_long.py:310,
-//   :344-353): d is read as bf16 and upcast, x written as bf16 rounded to
-//   nearest even; adv, the code plane, the (c', d') scratch and all
-//   arithmetic stay float32, as the TPU kernels' carries do (21 B a cell
-//   compulsory in 3D, 17 in 2D).
+//   :344-353): d is staged as bf16 (the words covering each run, by
+//   cp.async: tile.cuh) and upcast where the walk reads a row, x written
+//   as bf16 rounded to nearest even; adv, the code plane, the (c', d')
+//   scratch and all arithmetic stay float32, as the TPU kernels' carries
+//   do (21 B a cell compulsory in 3D, 17 in 2D).
 //
 // What bounds it on this card: memory traffic in 3D, each line's serial
 //   walk in 2D.  Per cell a launch must read adv, the packed mask and d4
@@ -94,6 +95,8 @@ template <int NV, class TD>
 struct LineRows {
   static constexpr int kNF = 1 + NV, kNC = 2, kND = NV;
   static constexpr bool kMask = true;
+  // bf16 d planes are staged (tile.cuh): read() upcasts them from the tile
+  static constexpr bool kStaged = !std::is_same<TD, float>::value;
   const float* adv;
   const TD* d;
   const int8_t* pk;
@@ -112,6 +115,22 @@ struct LineRows {
       lane.copy(sa, adv + o, full, rows_v, lines_v, NoShift());
     else
       lane.copy(sa, d + (i - 1) * fs + o, full, rows_v, lines_v, NoShift());
+  }
+  // A staged row (kStaged): adv from its float slot, each d from its bf16
+  // slot; the block's first cell lies o0 past a plane's first cell, the
+  // chunk's runs (rows lines fast, lines rows fast) rs apart; row r of
+  // line t.  Only the parity of an element offset matters (bf16_half),
+  // which a chunk's first row (k R, R even) leaves alone.
+  template <bool kLinesFast, int L, int R, int kS, int kPlane>
+  __device__ void read(const float* st, long long o0, int rs, int r, int t,
+                       float (&f)[kNF]) const {
+    f[0] = st[r * kS + t];
+    const unsigned run = (unsigned)o0 + (unsigned)(kLinesFast ? r : t) * rs;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      f[1 + v] = staged_bf16<kLinesFast, L, R>(
+          st + (1 + v) * kPlane, bf16_half(d, (unsigned)(v * fs) + run), r,
+          t);
   }
   __device__ const int8_t* mask() const { return pk; }
   __device__ void rows(const float (&f)[kNF], int code, float (&a)[2],

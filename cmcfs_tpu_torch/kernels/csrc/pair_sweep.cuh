@@ -38,9 +38,11 @@
 // The bf16 payload mode (the payload types P) replaces fused_sweep_nl's and
 //   fused_sweep_stream's bf16 storage (pallas_sweep_nl.py:172, :225-271,
 //   :956-959, :1002-1005; pallas_sweep_stream.py:28, :93-110, :447-452):
-//   rhs and out_prev are read as bf16 and upcast, out and tn written as
-//   bf16 rounded to nearest even; temp, the masks, the forcing and the
-//   scratch stay float32, as all arithmetic does.  A pair is two launches,
+//   rhs and out_prev are staged as bf16 in the chunk buffers (the words
+//   covering each run, by cp.async: tile.cuh) and upcast where the walks
+//   read them, out and tn written as bf16 rounded to nearest even; temp,
+//   the masks, the forcing and the scratch stay float32, as all
+//   arithmetic does.  A pair is two launches,
 //   so its first launch reads bf16 rhs and out_prev and writes float32
 //   out1 and tn1 (the TPU kernel keeps them in float32 VMEM), its second
 //   reads bf16 rhs and float32 out1 and writes bf16 (PayIn, PayOut); the
@@ -115,6 +117,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -296,13 +299,25 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
                            rows_v, lines_v, mf + mo, sp, s2);
   };
 
+  // the element offset of a staged bf16 plane's run (row r on X/Y, line
+  // t on Z), mod 2^32: bf16_half needs its parity only, which a chunk's
+  // first row (k R, R even) leaves alone
+  auto run_at = [&](int r) {
+    return (unsigned)base0 +
+           (unsigned)(kZ ? t : r) * (unsigned)(kZ ? s2 : sp);
+  };
   auto read_fwd = [&](int k, int r, Rw& w) {
     const float* st = smem + (k % S) * Tl::kFwd;
     const int i = r * kS + t;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       w.t[v] = st[v * kPlane + i];
-      w.rh[v] = st[(NV + v) * kPlane + i];
+      if constexpr (std::is_same<typename P::R, float>::value)
+        w.rh[v] = st[(NV + v) * kPlane + i];
+      else
+        w.rh[v] = staged_bf16<!kZ, L, R>(
+            st + (NV + v) * kPlane,
+            bf16_half(rhs, (unsigned)(v * g.fs) + run_at(r)), r, t);
     }
 #pragma unroll
     for (int j = 0; j < Tl::kNx; ++j) w.ex[j] = st[(2 * NV + j) * kPlane + i];
@@ -543,7 +558,13 @@ pair_sweep_iter_kernel(const float* __restrict__ temp,
         if (take) xs = xB[v];
       }
       const float told = st[(Tl::kNs + v) * kPlane + i];
-      const float oprev = st[(Tl::kNs + NV + v) * kPlane + i];
+      float oprev;
+      if constexpr (std::is_same<typename P::O, float>::value)
+        oprev = st[(Tl::kNs + NV + v) * kPlane + i];
+      else
+        oprev = staged_bf16<!kZ, L, R>(
+            st + (Tl::kNs + NV + v) * kPlane,
+            bf16_half(op, (unsigned)(v * g.fs) + run_at(r)), r, t);
       float onew, tnew = told;
       if (two_d) {
         onew = cl == kInterior ? x[v] : oprev;

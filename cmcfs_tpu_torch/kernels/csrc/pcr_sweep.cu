@@ -21,3 +21,11 @@ extern "C" int cmcfs_pcr_sweep_iter(
                        (const int8_t*)flags, (float*)out, (float*)tn};
   return launch(a, nx, ny, nz, axis, exact, gmerge, s, stream);
 }
+
+// The float32 instantiation of (axis, exact, dual) on lines of n cells:
+// registers, local memory, blocks an SM and shared memory into out[0..3]
+// (ints).  Returns a CUDA error code.
+extern "C" int cmcfs_pcr_sweep_info(int n, int axis, int exact, int dual,
+                                    void* out) {
+  return kernel_info<PayF32>(n, axis, exact, dual, (int*)out);
+}

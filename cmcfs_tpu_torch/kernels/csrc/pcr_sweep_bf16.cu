@@ -32,3 +32,15 @@ extern "C" int cmcfs_pcr_sweep_iter_bf16(
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The bf16 instantiation of (axis, exact, dual) with the payloads of
+// (op_bf16, out_bf16), as cmcfs_pcr_sweep_info.  Returns a CUDA error code.
+extern "C" int cmcfs_pcr_sweep_info_bf16(int n, int axis, int exact,
+                                         int dual, int op_bf16, int out_bf16,
+                                         void* out) {
+  if (op_bf16 && !out_bf16)
+    return kernel_info<PayIn>(n, axis, exact, dual, (int*)out);
+  if (!op_bf16 && out_bf16)
+    return kernel_info<PayOut>(n, axis, exact, dual, (int*)out);
+  return (int)cudaErrorInvalidValue;
+}

@@ -4,10 +4,13 @@
 // coalesced run) or rows fast (each line's rows are one contiguous run:
 // the transposing tile of a sweep along the contiguous axis), and the
 // int8 mask runs copied as the aligned words that cover them.  bf16
-// payload planes (the bf16 mode) take their own loader: cp.async copies 4,
-// 8 or 16 bytes, not a 2-byte element, and a bf16 row of an odd grid
-// starts on a 2-byte boundary; their elements are loaded, upcast (exact)
-// and stored to the same float tile planes.  Outputs are stored through
+// payload planes (the bf16 mode) are staged the way the masks are:
+// cp.async copies 4, 8 or 16 bytes, not a 2-byte element, and a bf16 row
+// of an odd grid starts on a 2-byte boundary, so the aligned 4-byte words
+// that cover each contiguous bf16 run go into the plane's tile slot as raw
+// bf16 (half a float plane's bytes), in flight like any chunk copy;
+// staged_bf16 reads an element back at its run's offset and upcasts it
+// (exact) where the walk reads the tile.  Outputs are stored through
 // store_as, which rounds to bf16 to nearest even (torch's
 // .to(torch.bfloat16) and XLA's convert round so).
 #pragma once
@@ -31,11 +34,6 @@ __device__ __forceinline__ void cp_async4(unsigned sa, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
                "l"(gmem)
                : "memory");
-}
-
-// st.shared of one float at the shared-window byte address ``sa``.
-__device__ __forceinline__ void st_shared_f32(unsigned sa, float v) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(sa), "f"(v) : "memory");
 }
 
 // A payload element as float (bf16 upcasts exactly), and a float stored
@@ -118,29 +116,66 @@ struct Lane {
                     src + (g0 + j * gs + dl(line(j))));
     }
   }
-  // The same for a bf16 plane: each element loaded and upcast by this
-  // thread and stored to the float tile (all loads first).  It is in the
-  // tile once this thread's stores are done, so after the block's next
-  // barrier, like the cp.async copies after their wait.
+  // The same for a bf16 plane, staged: the aligned words that cover each
+  // contiguous run of the chunk go to the slot at sa, kW words a run (a
+  // word that holds a byte of the tensor never crosses a page).  Lines
+  // fast (the lines contiguous): run r is row r, its word w copied by
+  // thread w.  Rows fast: run l is line l, the block's L kW words spread
+  // over its L threads in order, so a warp copies whole runs.  Read back
+  // with staged_bf16.
+  static constexpr int kW = (kLinesFast ? L : R) / 2 + 1;
   template <class Dl>
   __device__ __forceinline__ void copy(unsigned sa,
                                        const __nv_bfloat16* src, bool full,
-                                       int rows_v, int lines_v, Dl dl) const {
-    float v[R];
+                                       int rows_v, int lines_v, Dl) const {
+    if constexpr (kLinesFast) {
+      if (l0 >= kW) return;
+      const int len = 2 * (full ? L : lines_v);
 #pragma unroll
-    for (int j = 0; j < R; ++j)
-      if (full || (row(j) < rows_v && line(j) < lines_v))
-        v[j] = __bfloat162float(src[g0 + j * gs + dl(line(j))]);
+      for (int r = 0; r < R; ++r) {
+        const uintptr_t a = (uintptr_t)(src + (long long)r * gs);
+        if ((full || r < rows_v) && l0 < (((int)(a & 3) + len + 3) >> 2))
+          cp_async4(sa + 4u * (r * kW + l0),
+                    (const void*)((a & ~(uintptr_t)3) + 4 * l0));
+      }
+    } else {
+      const int t = l0 * R + r0, ls = gs / (L / R);
+      const int len = 2 * (full ? R : rows_v);
 #pragma unroll
-    for (int j = 0; j < R; ++j)
-      if (full || (row(j) < rows_v && line(j) < lines_v))
-        st_shared_f32(sa + s0 + 4u * (j * kStep), v[j]);
+      for (int k = 0; k < kW; ++k) {
+        const int f = t + k * L, l = f / kW, w = f - l * kW;
+        const uintptr_t a = (uintptr_t)(src + (long long)l * ls);
+        if ((full || l < lines_v) && w < (((int)(a & 3) + len + 3) >> 2))
+          cp_async4(sa + 4u * f, (const void*)((a & ~(uintptr_t)3) + 4 * w));
+      }
+    }
   }
 };
 
 struct NoShift {
   __device__ int operator()(int) const { return 0; }
 };
+
+// Which half of its 4-byte word holds element e of the bf16 plane at
+// ``plane`` (0 or 1): the parity of the element's address in 2-byte
+// units, so only the low bits of the address and of e matter.
+__device__ __forceinline__ int bf16_half(const __nv_bfloat16* plane,
+                                         unsigned e) {
+  return (int)((((unsigned)(uintptr_t)plane >> 1) + e) & 1u);
+}
+
+// Element (r, l) of a chunk's bf16 plane staged by Lane::copy into the
+// slot at ``slot``, upcast; ``half`` is bf16_half of the run's first
+// element (row r's first line lines fast, line l's first row rows fast),
+// the same in every chunk of the plane (a chunk's R rows are even).
+template <bool kLinesFast, int L, int R>
+__device__ __forceinline__ float staged_bf16(const float* slot, int half,
+                                             int r, int l) {
+  static_assert(R % 2 == 0, "a chunk's first row keeps a run's half");
+  constexpr int kW = (kLinesFast ? L : R) / 2 + 1;
+  const int i = (kLinesFast ? 2 * kW * r + l : 2 * kW * l + r) + half;
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(slot)[i]);
+}
 
 // Copy the aligned words that cover each contiguous byte run of a mask
 // chunk into the shared plane at sa, kW words a run (a word that holds a

@@ -11,9 +11,11 @@
 //   chain(v)      the c' chain whose rows system v solves
 //   fetch(lane, i, sa, o, full, rows_v, lines_v)   copy the chunk of plane
 //                 i whose first cell lies o past the plane's first cell
-//                 into the tile plane at sa (Lane::copy: cp.async for
-//                 float32 planes, tile.cuh's loader for bf16 ones);
+//                 into the tile plane at sa (Lane::copy: cp.async of the
+//                 float32 elements, or of the words covering bf16 runs);
 //                 mask() the code plane's first cell
+//   kStaged       some planes are staged bf16: read(...) reads a row's
+//                 values from the tile (else each plane's float slot)
 //   rows(f, code, a, b, c, d)   the rows of every chain and the right-hand
 //                 side of every system, from a row's staged values
 //
@@ -152,8 +154,13 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
   auto read_fwd = [&](int k, int r, Row& w) {
     const float* st = smem + (k % S) * Tl::kFwd;
     const int i = r * kS + t;
+    if constexpr (P::kStaged) {
+      pol.template read<!kZ, L, R, kS, kPlane>(st, base0, kZ ? s2 : sp, r,
+                                               t, w.f);
+    } else {
 #pragma unroll
-    for (int j = 0; j < NF; ++j) w.f[j] = st[j * kPlane + i];
+      for (int j = 0; j < NF; ++j) w.f[j] = st[j * kPlane + i];
+    }
     w.code = 0;
     if constexpr (P::kMask)
       w.code = mask_at<kW>(

@@ -12,7 +12,7 @@ take bit; UpdateSegment, the NODE_IN merge and the gmerge fold.
 
 ``pcr_sweep`` dispatches on the tensors' device: CUDA tensors launch
 ``kernels/csrc/pcr_sweep.cu`` once per local iteration (lines of at most
-``MAX_N`` cells, each held whole in shared memory) or raise; CPU tensors
+``MAX_N`` cells, each reduced by one warp in registers) or raise; CPU tensors
 run ``pcr_sweep_ref``, the plain version (``pair_sweep.pair_sweep_ref``
 with ``pcr``), which the kernel equals bit for bit on the card.  bf16
 payloads (backend ``fused_pcr_bf16``) are the pair sweep's bf16 mode:
@@ -28,8 +28,8 @@ from .pair_sweep import check_inputs, pair_sweep_ref
 
 launches = LaunchCounter()     # one per local iteration
 bf16_launches = LaunchCounter()   # the same, bf16 payloads
-# the longest line the kernel holds in shared memory: the pair kernel's
-# line cap (pallas_sweep_nl.py:70), which the dispatch keeps
+# the longest line a warp of the kernel holds (8 cells a lane): the pair
+# kernel's line cap (pallas_sweep_nl.py:70), which the dispatch keeps
 MAX_N = 256
 
 
@@ -82,6 +82,33 @@ def _launch(temp4, cls, bcv, bct, rhs4, op4, flags, s, axis, exact, gmerge,
         raise RuntimeError(f"pcr_sweep kernel launch failed: CUDA error {err} "
                            f"(shape {tuple(cls.shape)}, axis {axis})")
     return out4, tn4
+
+
+# the payload types of the kernel's instantiations: (op_bf16, out_bf16) of
+# the bf16 entry, None for the float32 one
+PAYLOADS = {"f32": None, "bf16_in": (1, 0), "bf16_out": (0, 1)}
+
+
+def kernel_info(n: int, axis: int, exact: bool, dual: bool,
+                payload: str = "f32") -> dict:
+    """What the card reports of one instantiation on lines of n cells:
+    registers a thread, local memory a thread (bytes; 0 when nothing
+    spills), blocks an SM and dynamic shared memory (bytes)."""
+    import ctypes
+
+    from ..kernels.build import load_library
+    lib = load_library().lib
+    out = (ctypes.c_int * 4)()
+    pay = PAYLOADS[payload]
+    if pay is None:
+        err = lib.cmcfs_pcr_sweep_info(n, axis, int(exact), int(dual), out)
+    else:
+        err = lib.cmcfs_pcr_sweep_info_bf16(n, axis, int(exact), int(dual),
+                                            *pay, out)
+    if err != 0:
+        raise RuntimeError(f"pcr_sweep kernel_info failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm",
+                     "smem_bytes"), out))
 
 
 def pcr_sweep_ref(temp4, cls, bcv, bct, rhs4, out_prev4, scal, axis: int,

@@ -19,11 +19,14 @@ and row kernels on the edges of their tiles (``*_edges_bitwise``: ragged
 chunks and blocks, grid-edge lines, random classes or whole segments;
 the line sweep's alternative Z tiles; the row kernel's k-form), the dual
 pair kernel (the FREE baffle turned onto each axis, and random classes and
-flags on the tiles' edges) and the PCR kernel (n = 40, 200, 255, 256 on
-each axis, with and without duals).  The bf16 payload mode of every kernel
+flags on the tiles' edges) and the PCR kernel (n from 1 to 256 across
+every boundary of a warp's layout on each axis, with and without duals;
+no instantiation spills).  The bf16 payload mode of every kernel
 (``*_bf16_bitwise``: bf16 rhs, out_prev or d in, bf16 out and tn or x out,
 float32 in between) is held to its plain version bit for bit on the same
-edges, with its launches counted apart (``bf16_launches``).
+edges, with its launches counted apart (``bf16_launches``), and with its
+bf16 inputs starting on either half of a 4-byte word
+(``test_bf16_loader_offsets*``: the staged loader's run offsets).
 """
 import numpy as np
 import pytest
@@ -766,16 +769,25 @@ def test_pair_kernel_dual_edges_bitwise(shape, axis, exact):
         assert _max_err(g, w) == 0.0
 
 
+# line lengths of the PCR kernel's tests: a warp holds a line as rows of 32
+# cells (lane q: cells q + 32 j), levels s < 32 by shuffles and s = 32, 64,
+# 128 in registers; n = 1 and 2 (one lane, one level), 31 / 32 / 33 (a
+# lane row short, full, one past), 40, 65 and 129 (one past the register
+# levels' boundaries), 200, 255 and the cap 256
+_PCR_N = [1, 2, 31, 32, 33, 40, 65, 129, 200, 255, 256]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("dual", [False, True])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-@pytest.mark.parametrize("n", [40, 200, 255, 256])
+@pytest.mark.parametrize("n", _PCR_N)
 def test_pcr_kernel_bitwise(n, axis, dual, exact):
-    """The PCR kernel against its plain version: lines of n cells (the
-    non-powers of two 40, 200, 255 and the cap 256) along each axis, 55
-    lines in blocks of 8 (a ragged last block), random classes, with and
-    without random dual planes; gmerge on X."""
+    """The PCR kernel against its plain version: lines of n cells along
+    each axis (_PCR_N: every boundary of a warp's layout, 32 cells a row
+    of lanes, and the cap 256), 55 lines in blocks of 8 (a ragged last
+    block), random classes, with and without random dual planes; gmerge
+    on X."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     shape = [5, 11]
@@ -917,7 +929,7 @@ def test_pair_kernel_dual_bf16_bitwise(shape, axis, exact):
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("dual", [False, True])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-@pytest.mark.parametrize("n", [40, 255, 256])
+@pytest.mark.parametrize("n", _PCR_N)
 def test_pcr_kernel_bf16_bitwise(n, axis, dual, exact):
     """The PCR kernel's bf16 mode, shapes as test_pcr_kernel_bitwise."""
     if not torch.cuda.is_available():
@@ -1002,6 +1014,114 @@ def test_line_sweep_2d_kernel_bf16_bitwise(shape, axis, exact):
     got = _bf16_run((ls.bf16_launches, ls.launches), 1,
                     lambda: ls.line_sweep_2d(adv, pk, d3, scal, axis, exact))
     _bitwise(got, ls.line_sweep_2d_ref(adv, pk, d3, scal, axis, exact))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("payload", list(pcs.PAYLOADS))
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("axis", [0, 2])
+def test_pcr_kernel_no_spills(axis, exact, dual, payload):
+    """Every PCR instantiation (X/Y and Z, both division modes, with and
+    without duals, each payload type) keeps its chains in registers: no
+    local memory, and two blocks an SM or more at n = 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    info = pcs.kernel_info(256, axis, exact, dual, payload)
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 2, info
+
+
+def _at_offset(x, k):
+    """x copied into a contiguous tensor that starts k elements past its
+    allocation's start: k = 1 puts a bf16 tensor's rows on 2-byte
+    boundaries where k = 0 puts them on 4-byte ones."""
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    v = buf[k:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+# the bf16 loader's runs (tile.cuh): innermost lengths odd and even (so
+# the variables' planes, fs apart, start on both word halves), rows not a
+# multiple of any tile's R (partial chunks) and lines not of its L, on X,
+# Y and Z
+_LOADER_3D = [((37, 5, 33), 0), ((38, 4, 34), 0), ((5, 37, 33), 1),
+              ((4, 38, 34), 1), ((5, 7, 45), 2), ((4, 6, 46), 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("entry", ["line", "pair", "dual_pair", "stream"])
+@pytest.mark.parametrize("shape, axis", _LOADER_3D)
+def test_bf16_loader_offsets_bitwise(shape, axis, entry, offset):
+    """Each 3D bf16 entry whose bf16 planes go through the staged loader,
+    with its bf16 inputs starting on each half of a 4-byte word; the line
+    sweep on Z at each tile of Z_ROWS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seed = sum(shape) + 10 * axis + 40 + offset
+    if entry == "line":
+        adv, pk, d4, scal = _line_case(shape, axis, 4, seed)
+        d4 = _at_offset(d4.bfloat16(), offset)
+        want = ls.line_sweep_ref(adv, pk, d4, scal, axis, False)
+        for z_rows in ((0,) + ls.Z_ROWS[1:] if axis == 2 else (0,)):
+            _bitwise(_bf16_run((ls.bf16_launches, ls.launches), 1,
+                               lambda: ls._launch(adv, pk, d4, scal, axis,
+                                                  axis, False, z_rows)),
+                     want)
+        return
+    rng = np.random.default_rng(seed)
+    (cls, bcv, bct), (temp4, rhs4, op4), forcing = _edge_fields(rng, shape,
+                                                                4)
+    rb, ob = (_at_offset(t.bfloat16(), offset) for t in (rhs4, op4))
+    if entry == "stream":
+        args = (temp4, cls, bcv, bct, rb, ob, forcing, _PAIR_SCAL[:5], axis,
+                True)
+        _bitwise(_bf16_run((ss.bf16_launches, ss.launches), 1,
+                           lambda: ss.stream_sweep(*args)),
+                 ss.stream_sweep_ref(*args))
+        return
+    dual = entry == "dual_pair"
+    args = (temp4, cls, bcv, bct, rb, ob, _PAIR_SCAL, axis, True, True) + (
+        (_edge_flags(rng, cls),) if dual else ())
+    counters = ((ps.dual_bf16_launches, ps.bf16_launches) if dual else
+                (ps.bf16_launches, ps.dual_bf16_launches))
+    _bitwise(_bf16_run(counters + (ps.launches,), 2,
+                       lambda: ps.pair_sweep(*args)),
+             ps.pair_sweep_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("entry", ["line", "stream"])
+@pytest.mark.parametrize("shape, axis", [((37, 33), 0), ((38, 34), 0),
+                                         ((33, 45), 1), ((34, 46), 1)])
+def test_bf16_loader_offsets_2d_bitwise(shape, axis, entry, offset):
+    """The 2D bf16 line and stream entries, inputs on each half of a word:
+    X with odd and even lines, Y (the transposing tile) with partial
+    chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seed = sum(shape) + 10 * axis + 50 + offset
+    if entry == "line":
+        adv, pk, d3, scal = _line_case(shape, axis, 3, seed)
+        d3 = _at_offset(d3.bfloat16(), offset)
+        _bitwise(_bf16_run((ls.bf16_launches, ls.launches), 1,
+                           lambda: ls.line_sweep_2d(adv, pk, d3, scal, axis,
+                                                    False)),
+                 ls.line_sweep_2d_ref(adv, pk, d3, scal, axis, False))
+        return
+    rng = np.random.default_rng(seed)
+    (cls, _, bct), (temp3, rhs3, op3), forcing = _edge_fields(
+        rng, shape, 3, segments_axis=axis)
+    scal = np.array([30.0, 20.0, 1000.0, 250.0, 1.0], dtype=np.float32)
+    args = (temp3, cls, bct, *(_at_offset(t.bfloat16(), offset)
+                               for t in (rhs3, op3)), forcing, scal, axis,
+            False, False)
+    _bitwise(_bf16_run((ss.bf16_launches, ss.launches), 1,
+                       lambda: ss.stream_sweep_2d(*args)),
+             ss.stream_sweep_2d_ref(*args))
 
 
 _PLAIN_3D = {"pair_sweep": ps.pair_sweep_ref, "pcr_sweep": pcs.pcr_sweep_ref,
