@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's 3D and 2D ADI paths once on one GPU.
+"""Drive the PyTorch + CUDA port's 3D and 2D paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -102,9 +102,31 @@ and nvcc.  Phases, each of which raises on failure:
    bit, against ``fused_nl``), 2d2048 and 2d1024 on ``fused_bf16`` (the
    2D line sweep) and the 2D CLI box on it; and ``fused_bf16`` beside
    ``fused_nl`` for 100 steps on the box at about 128^3, max|du|/max|u|
-   at steps 10, 50 and 100.
+   at steps 10, 50 and 100;
+19. the Explicit and Stable schemes in 3D (PyTorch ops; no kernel backs
+   them, none launches): ``stencil.over``'s quotients on the card against
+   the CPU's, bit for bit, with a host-scalar division's count of
+   differing values beside them; ``make_solver_3d`` on the 256^3 lid cavity at
+   ng=2, dt 4e-4 (inside the explicit limit), 3 Explicit steps and one
+   Stable step, ms a step, the divergence error and the Poisson
+   iterations of each global iteration; the same at 64^3 on the card and
+   on the CPU (``device="cpu"``), within 1e-6 * max(1, max|field|) with
+   equal Poisson counts;
+20. the schemes in 2D: ``make_solver`` on the 2d2048 lid cavity, 3
+   Explicit steps and one Stable step; Stable's ``sequential`` order one
+   step at 32^2 (a cut: its waves grow with the grid); card against CPU
+   at 128^2 and for the sequential step;
+21. the CLI flags: ``cli3d.run_case`` on the 256^3 box (the pair), 4
+   steps straight against 2 with ``checkpoint`` and 2 ``resume``d (state
+   and NetCDF file bit for bit), ``carried`` (the same), ``dump_grid``
+   (dimz BMP files), ``profile`` (its event table; the direction
+   sections against unprofiled steps); ``cli2d`` checkpoint and resume on
+   the 2D box (state and CDL frames bit for bit); each scheme through
+   both CLIs by the config's ``solver`` line;
+22. ``python -m cmcfs_tpu_torch.verify`` on the 256^3 box, 2 steps,
+   ``scan`` against ``auto``: returns 0.
 
-Every kernel's launch counter is set to 0 just before a path is driven
+Phases 19-22 print their seconds.  Every kernel's launch counter is set to 0 just before a path is driven
 and read just after; launches made to compare a kernel with its plain
 version do not count.  The last lines are a JSON record of the kernels,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
@@ -159,6 +181,29 @@ TOL = 1e-5
 # its bf16 steps to (tests/test_backends3d.py:97-150).  Each bf16 kernel
 # and step against its plain version: bit for bit.
 BF16_TOL = 0.02
+# phases 19-20: the Explicit and Stable schemes, PyTorch ops (no kernel
+# backs them, in cmcfs_tpu either: XLA ops).  3D: tests/test_solvers3d_ext.py's
+# lid cavity at full size (dx = 1/n, lid 0.2, normalized Re 200, Pr 0.72,
+# lambda 1.4); the explicit limit dx^2 / (6 nu) is 5.09e-4 at 256^3.  One
+# Stable step at 256^3 took 28.7 s at ng=2 (NVIDIA H100 80GB HBM3, 700 W:
+# 2437 and 3617 Poisson iterations), so both schemes run at ng=2.
+SCHEME_N = 256
+SCHEME_DT = 4e-4
+SCHEME_NG = 2
+EXPLICIT_STEPS = 3
+# card against the port on the CPU: the sizes, and the CPU tests' bound
+# (tests/torch_schemes.REL): |delta| <= SCHEME_REL * max(1, max|cpu|)
+SCHEME_CHECK_N = 64
+SCHEME_CHECK_N2D = 128
+SCHEME_REL = 1e-6
+# 2D: the 2d2048 configuration (bench.py run_bench_2d: lid cavity 2048^2,
+# dx 0.001, physical parameters, dt 0.0005 inside dx^2 / (4 nu) = 0.005,
+# ng=2); the sequential Gauss-Seidel order runs one small grid (cut): a
+# sweep is about 2n waves of a few launches each (32^2: 12.6 s for a step
+# of 928 + 1577 sweeps, 48^2 31.4 s, 64^2 54.6 s on the H100 above)
+SEQ_N = 32
+# phase 21: the CLI runs at k steps and 2k steps
+CLI_K = 2
 # bound_ms: the least time the card could take, from the published H100
 # SXM peaks (NVIDIA's data sheet): 3.35 TB/s device memory, 67 TFLOP/s
 # float32 outside the tensor cores
@@ -1121,7 +1166,7 @@ def main() -> int:
     if len(errs2) != CLI2D_STEPS or not all(math.isfinite(x)
                                             for x in errs2):
         fail(f"2D CLI divergence errors {errs2}")
-    sec = {k: t / c * 1e3 for k, (c, t) in prof2.events.items()}
+    sec = {k: e.total / e.count * 1e3 for k, e in prof2.events.items()}
     print(f"divergence error per step {errs2}; ms per call: "
           f"{json.dumps(sec)} ({smi})")
     print(f"CDL output {os.path.getsize(os.path.join(work, 'box2d.cdl'))} "
@@ -1720,7 +1765,7 @@ def main() -> int:
     torch.cuda.synchronize()
     got = counters.read()
     rep = solver2.dispatch_report()
-    sec = {k: t / c * 1e3 for k, (c, t) in prof2.events.items()}
+    sec = {k: e.total / e.count * 1e3 for k, e in prof2.events.items()}
     print(f"2D CLI fused_bf16: dirs={rep}; launches {got}; divergence "
           f"error per step {errs2}; ms per call {json.dumps(sec)} ({smi})")
     if (set(rep.values()) != {"line"}
@@ -1767,6 +1812,287 @@ def main() -> int:
     # above)
     rec["stream_sweep_2d_bf16"]["path"] = (
         "none: the 2D fused_bf16 runs the line sweep (adi2d.py:92-134)")
+
+    # --------------------------------------- 19. Explicit and Stable, 3D
+    t_phase = time.perf_counter()
+    phase(f"19. Explicit and Stable in 3D: make_solver_3d on the lid cavity "
+          f"at {SCHEME_N}^3, ng={SCHEME_NG}, and against the CPU at "
+          f"{SCHEME_CHECK_N}^3")
+    from cmcfs_tpu_torch.geom.synthetic import lid_cavity_3d
+    from cmcfs_tpu_torch.models.solver2d import make_solver
+    params_s = FluidParams.normalized(200.0, 0.72, 1.4)
+    print(f"dt {SCHEME_DT}: the explicit limit dx^2 / (6 nu) at "
+          f"{SCHEME_N}^3 is {(1 / SCHEME_N) ** 2 / (6 * params_s.v_vis):.3e}")
+
+    def run_scheme(solver, dt, steps, ng):
+        """``steps`` steps of a solver: (ms a step, Poisson iterations of
+        each global iteration a step); fails on a kernel launch (no
+        kernel backs the schemes), a non-finite field or error."""
+        on_card = solver.device.type == "cuda"
+        ms, iters = [], []
+        counters.reset()
+        for _ in range(steps):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.update_boundaries()
+            solver.time_step(dt, ng, 1)
+            if on_card:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            iters.append(list(getattr(solver, "last_poisson_iters", ())))
+        if any(counters.read().values()):
+            fail(f"{solver.name}: a kernel was launched {counters.read()}")
+        if not (math.isfinite(solver.last_err) and all(
+                bool(torch.isfinite(f).all()) for f in solver.cur)):
+            fail(f"{solver.name}: non-finite state or error "
+                 f"{solver.last_err}")
+        return ms, iters
+
+    def scheme_3d(scheme, n, steps, device):
+        grid = lid_cavity_3d(n, n, n, dx=1.0 / n, lid_velocity=0.2)
+        solver = make_solver_3d(scheme, device=device)
+        solver.init(grid, params_s)
+        ms, iters = run_scheme(solver, SCHEME_DT, steps, SCHEME_NG)
+        print(f"{scheme} {n}^3 on {solver.device}: ms a step {ms}; "
+              f"divergence error {solver.last_err:.6e}; Poisson iterations "
+              f"a global iteration {iters} ({smi})", flush=True)
+        return solver, ms, iters
+
+    def card_vs_cpu(what, card, cpu, it_card, it_cpu):
+        errs = [float((a.cpu() - b).abs().max()) for a, b in
+                zip(card.cur, cpu.cur)]
+        bounds = [SCHEME_REL * max(1.0, float(b.abs().max()))
+                  for b in cpu.cur]
+        print(f"{what}: card vs CPU max|delta| per variable {errs} (bounds "
+              f"{bounds}); Poisson iterations card {it_card}, CPU {it_cpu}")
+        if any(e > b for e, b in zip(errs, bounds)) or it_card != it_cpu:
+            fail(f"{what}: the card and the CPU disagree")
+
+    # the schemes' divisions (stencil.over) round as the CPU's quotient,
+    # bit for bit; a division by the host scalar is printed beside it
+    from cmcfs_tpu_torch.ops import stencil
+    xg = torch.randn(1 << 22, generator=torch.Generator().manual_seed(0))
+    xd = xg.to(dev)
+    for s in (np.float32(0.02), np.float32(2.0) * np.float32(1 / 256),
+              np.float32(SCHEME_DT), np.float32(3) * np.float32(0.02) ** 4):
+        want = xg / s
+        n_over = int((stencil.over(xd, s).cpu() != want).sum())
+        n_host = int(((xd / s).cpu() != want).sum())
+        print(f"divide by {s!r}: stencil.over differs from the CPU on "
+              f"{n_over} of {xg.numel()}, a host-scalar division on "
+              f"{n_host}")
+        if n_over:
+            fail(f"stencil.over by {s!r} parts from the CPU's quotient")
+    del xg, xd
+    for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
+        sv, ms, iters = scheme_3d(scheme, SCHEME_N, steps, dev)
+        timing[f"{SCHEME_N} {scheme} ng={SCHEME_NG}"] = {True: ms[-1]}
+        del sv
+    torch.cuda.empty_cache()
+    for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
+        card, _, it_card = scheme_3d(scheme, SCHEME_CHECK_N, steps, dev)
+        cpu, _, it_cpu = scheme_3d(scheme, SCHEME_CHECK_N, steps, "cpu")
+        card_vs_cpu(f"{scheme} {SCHEME_CHECK_N}^3", card, cpu, it_card,
+                    it_cpu)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # --------------------------------------- 20. Explicit and Stable, 2D
+    t_phase = time.perf_counter()
+    phase(f"20. Explicit and Stable in 2D: make_solver on the 2d2048 lid "
+          f"cavity, ng={SCHEME_NG}, dt {DT2}; sequential at {SEQ_N}^2; "
+          f"against the CPU at {SCHEME_CHECK_N2D}^2")
+
+    def scheme_2d(scheme, n, steps, device, backend="auto", params=params2,
+                  dx=0.001, dt=DT2, lid=0.5):
+        solver = make_solver(scheme, backend=backend, device=device)
+        solver.init(lid_cavity_2d(n, n, dx=dx, lid_velocity=lid), params)
+        ms, iters = run_scheme(solver, dt, steps, SCHEME_NG)
+        print(f"{scheme} ({backend}) {n}^2 on {solver.device}: ms a step "
+              f"{ms}; global iterations {solver.last_iters}; divergence error "
+              f"{solver.last_err:.6e}; Poisson iterations a global "
+              f"iteration {iters} ({smi})", flush=True)
+        return solver, ms, iters
+
+    for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
+        _, ms, _ = scheme_2d(scheme, 2048, steps, dev)
+        timing[f"2d2048 {scheme} ng={SCHEME_NG}"] = {True: ms[-1]}
+    print(f"cut: Stable with the sequential order runs one step at "
+          f"{SEQ_N}^2, not 2048^2 (a sweep is about {2 * SEQ_N} waves of a "
+          f"few launches each)")
+    # the CPU tests' parameters and cavity (tests/torch_schemes.py), dt
+    # inside dx^2 / (4 nu) = 0.00375
+    p2n = dict(params=FluidParams.normalized(150.0, 0.72, 1.4), dx=0.01,
+               dt=0.002, lid=0.4)
+    seq, ms, it_seq = scheme_2d("Stable", SEQ_N, 1, dev, "sequential", **p2n)
+    timing[f"2d{SEQ_N} Stable sequential ng={SCHEME_NG}"] = {True: ms[-1]}
+    cpu, _, it_cpu = scheme_2d("Stable", SEQ_N, 1, "cpu", "sequential", **p2n)
+    card_vs_cpu(f"Stable sequential {SEQ_N}^2", seq, cpu, it_seq, it_cpu)
+    for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
+        card, _, it_card = scheme_2d(scheme, SCHEME_CHECK_N2D, steps, dev,
+                                     **p2n)
+        cpu, _, it_cpu = scheme_2d(scheme, SCHEME_CHECK_N2D, steps, "cpu",
+                                   **p2n)
+        card_vs_cpu(f"{scheme} {SCHEME_CHECK_N2D}^2", card, cpu, it_card,
+                    it_cpu)
+    del seq, card, cpu
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------ 21. the CLI flags
+    t_phase = time.perf_counter()
+    phase(f"21. the CLI flags: cli3d.run_case on the 256^3 box (auto: the "
+          f"pair), {2 * CLI_K} steps straight against {CLI_K} with "
+          f"checkpoint and {CLI_K} resumed; profile, dump_grid, carried; "
+          f"cli2d checkpoint / resume; the schemes through both CLIs")
+    from cmcfs_tpu_torch.utils.profiler import Profiler
+    every = os.path.join(work, "b256every")
+    data_c, cfgp_c = gen(every, dx=BOX_DX, time_steps=2 * CLI_K + 2,
+                         num_global=NUM_GLOBAL, num_local=NUM_LOCAL)
+
+    def out_every_step(path, extra=()):
+        with open(path) as f:
+            text = f.read().replace("out_time_steps \t1000000",
+                                    "out_time_steps \t1")
+        for old, new in extra:
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+
+    out_every_step(cfgp_c)
+
+    def cli(base, **kw):
+        return cli3d.run_case(data_c, os.path.join(work, base), cfgp_c,
+                              quiet=True, device=dev, **kw)[0]
+
+    def same_state(what, a, b):
+        for sa, sb in ((a.cur, b.cur), (a.next, b.next)):
+            if not all(torch.equal(x, y) for x, y in zip(sa, sb)):
+                fail(f"{what}: the state differs")
+
+    def same_bytes(what, p1, p2):
+        with open(p1, "rb") as f1, open(p2, "rb") as f2:
+            if f1.read() != f2.read():
+                fail(f"{what}: {p1} and {p2} differ")
+
+    counters.reset()
+    straight = cli("straight", max_steps=2 * CLI_K)
+    torch.cuda.synchronize()
+    got = counters.read()
+    if got["pair_sweep"] != 2 * CLI_K * per_step:
+        fail(f"straight run: launches {got}")
+    ck = os.path.join(work, "ck256")
+    cli("part", max_steps=CLI_K, checkpoint=ck)
+    print(f"checkpoint {os.path.getsize(ck + '.npz')} bytes")
+    resumed = cli("part", max_steps=CLI_K, resume=ck + ".npz")
+    same_state("resume", straight, resumed)
+    same_bytes("resume", os.path.join(work, "straight_res.nc"),
+               os.path.join(work, "part_res.nc"))
+    print(f"resume: {CLI_K} + {CLI_K} steps equal {2 * CLI_K} straight bit "
+          f"for bit (state and NetCDF file)")
+    os.remove(ck + ".npz")
+    carried_sv = cli("carried", max_steps=2 * CLI_K, carried=True)
+    same_state("carried", straight, carried_sv)
+    same_bytes("carried", os.path.join(work, "straight_res.nc"),
+               os.path.join(work, "carried_res.nc"))
+    print("carried: the per-step run's state and records, bit for bit")
+    del resumed, carried_sv
+    cli("grid", max_steps=1, dump_grid=True)
+    bmps = sorted(os.listdir(os.path.join(work, "grid_grid_3d")))
+    print(f"dump_grid: {len(bmps)} BMP files, "
+          f"{os.path.getsize(os.path.join(work, 'grid_grid_3d', bmps[0]))} "
+          f"bytes each")
+    if len(bmps) != straight.grid.dimz:
+        fail(f"dump_grid wrote {len(bmps)} files for dimz "
+             f"{straight.grid.dimz}")
+    # profile: through the CLI (its event table), then the same steps'
+    # sections against unprofiled steps from the same state
+    dt_c = straight.grid.cycle_len / (straight.grid.num_frames
+                                      * (2 * CLI_K + 2))
+    cli3d.run_case(data_c, os.path.join(work, "prof"), cfgp_c, max_steps=2,
+                   profile=True, device=dev)
+    prof = Profiler(device=dev)
+    for _ in range(TIMED_STEPS):
+        straight.update_boundaries()
+        with prof.section("TimeStep"):
+            straight.time_step(dt_c, NUM_GLOBAL, NUM_LOCAL)
+        straight.update_boundaries()
+        straight.time_step_profiled(dt_c, NUM_GLOBAL, NUM_LOCAL, prof)
+    ev = {k: (e.count, e.total * 1e3) for k, e in prof.events.items()}
+    solve = sum(ev[f"SolveSegments_{a}"][1] for a in "XYZ") / TIMED_STEPS
+    step_ms = ev["TimeStep"][1] / TIMED_STEPS
+    print(prof.report())
+    print(f"profile: SolveSegments X + Y + Z {solve:.2f} ms a step, the "
+          f"unprofiled TimeStep {step_ms:.2f} ms ({smi})")
+    if not 0.7 * step_ms <= solve <= 1.3 * step_ms:
+        fail(f"profile: the direction sections ({solve:.2f} ms) are not "
+             f"close to the step ({step_ms:.2f} ms)")
+    del straight
+    # cli2d: checkpoint and resume on the 2D box case
+    box2 = os.path.join(work, "box2d_every")
+    data2c, cfgp2c = gen_2d(box2, dx=BOX2D_DX, time_steps=2 * CLI_K + 2)
+    out_every_step(cfgp2c)
+
+    def cli_2d(out, **kw):
+        return cli2d.run_case(data2c, "", os.path.join(box2, out), cfgp2c,
+                              quiet=True, device=dev, **kw)[0]
+
+    full2 = cli_2d("full.cdl", max_steps=2 * CLI_K)
+    ck2 = os.path.join(box2, "ck")
+    cli_2d("p1.cdl", max_steps=CLI_K, checkpoint=ck2)
+    part2 = cli_2d("p2.cdl", max_steps=CLI_K, resume=ck2 + ".npz")
+    same_state("cli2d resume", full2, part2)
+
+    def cdl_body(out):
+        with open(os.path.join(box2, out)) as f:
+            return f.read().partition("u = \n")[2]
+
+    if cdl_body("p1.cdl") + cdl_body("p2.cdl") != cdl_body("full.cdl"):
+        fail("cli2d resume: the CDL frames differ")
+    print(f"cli2d resume: {CLI_K} + {CLI_K} steps equal {2 * CLI_K} straight "
+          f"bit for bit (state and CDL frames); legacy layer "
+          f"{os.path.getsize(ck2 + '.lastlayer.txt')} bytes")
+    del full2, part2
+    # the schemes through the CLIs: the config's solver line, a dt inside
+    # their explicit limits (3D: the box at 65^3, dx 0.0164, dt 0.005;
+    # 2D: the box at dx 0.004, dt 0.01)
+    for scheme in ("Explicit", "Stable"):
+        d3, c3 = gen(os.path.join(work, f"b65{scheme}"), dx=0.0164,
+                     time_steps=200, num_global=SCHEME_NG,
+                     num_local=NUM_LOCAL)
+        out_every_step(c3, [("solver\t\tADI", f"solver\t\t{scheme}")])
+        sv, errs3 = cli3d.run_case(d3, os.path.join(work, f"b65{scheme}"),
+                                   c3, quiet=True, max_steps=3,
+                                   collect_errs=True, device=dev)
+        d2, c2p = gen_2d(os.path.join(work, f"b2d{scheme}"), dx=0.004,
+                         time_steps=100)
+        out_every_step(c2p, [("solver\t\tADI", f"solver\t\t{scheme}")])
+        sv2, errs2 = cli2d.run_case(d2, "",
+                                    os.path.join(work, f"{scheme}.cdl"), c2p,
+                                    quiet=True, max_steps=3,
+                                    collect_errs=True, device=dev)[:2]
+        print(f"{scheme}: cli3d {sv.grid.dimx}^3 errors {errs3}, Poisson "
+              f"{list(getattr(sv, 'last_poisson_iters', ()))}; cli2d "
+              f"{tuple(sv2.ga.types.shape)} errors {errs2}, Poisson "
+              f"{list(getattr(sv2, 'last_poisson_iters', ()))}")
+        if sv.name != scheme or sv2.name != scheme or not all(
+                math.isfinite(e) for e in errs3 + errs2):
+            fail(f"{scheme} through the CLIs: {sv.name}, {sv2.name}, "
+                 f"{errs3}, {errs2}")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------------- 22. verify
+    t_phase = time.perf_counter()
+    phase("22. verify: python -m cmcfs_tpu_torch.verify on the 256^3 box, "
+          "2 steps, scan against auto")
+    out = subprocess.run([sys.executable, "-m", "cmcfs_tpu_torch.verify",
+                          data_c, cfgp_c, "scan", "auto", "steps", "2"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    print(out.stdout.strip())
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        fail(f"verify returned {out.returncode}")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
 
     # ------------------------------------------------------------ result
     phase("result")

@@ -7,40 +7,44 @@ Usage (grammar of reference src/FluidSolver2D/FluidSolver2D.cpp:22-159):
 
 Flags: ``align`` (32-align grid dims), ``CSV`` (section table as CSV),
 ``quiet``, ``backend
-auto|fused_dma|fused|fused_full|fused_nl|scan|pallas|pcr`` (``auto`` is
-``fused_dma``).  The run needs a CUDA device.  Each step runs
-Prepare (host geometry rebuild, line classes and upload), UpdateBoundaries,
-TimeStep, SetGridBoundaries and, every ``out_time_steps``, Output; the
-section table's times end in a device synchronize.  ``checkpoint`` and
-``resume`` exit with status 2 (ROADMAP A5).
+auto|fused_dma|fused|fused_full|fused_nl|fused_bf16|scan|pallas|pcr``
+(``auto`` is ``fused_dma``; under ``solver Stable``, ``sequential`` selects
+the reference's exact Gauss-Seidel order), ``checkpoint <path>`` (the
+state as ``<path>.npz`` and ``<path>.lastlayer.txt`` at each output step),
+``resume <path.npz>``.  The config's ``solver`` line picks ADI, Explicit
+or Stable.  The run needs a CUDA device.  Each step runs Prepare (host
+geometry rebuild, line classes and upload), UpdateBoundaries, TimeStep,
+SetGridBoundaries and, every ``out_time_steps``, Output; the section
+table's times end in a device synchronize.
 """
 from __future__ import annotations
 
 import sys
 
-from .cli3d import SectionTimer
+import torch
+
 from .core.config import Config
 from .core.params import FluidParams
 from .core.scene2d import Scene2D
 from .geom.raster2d import Grid2D
 from .io import writers
+from .io.checkpoint import (load_checkpoint, save_checkpoint,
+                            save_last_layer_txt)
 from .io.project import find_file, load_project
+from .models.common2d import State2D
 from .models.solver2d import make_solver
+from .utils.profiler import Profiler
 from .utils.timer import CpuTimer, print_time_step_info
-
-UNPORTED_FLAGS = {
-    "checkpoint": "checkpoint/resume (ROADMAP A5)",
-    "resume": "checkpoint/resume (ROADMAP A5)",
-}
 
 
 def run_case(input_path: str, field_path: str, output_path: str,
              config_path: str, align: bool = False, csv: bool = False,
              backend: str = "auto", quiet: bool = False,
              max_steps: int | None = None, collect_errs: bool = False,
+             checkpoint: str | None = None, resume: str | None = None,
              device="cuda"):
-    """Run one case end to end; returns (solver, errs, sections), the last
-    the ``SectionTimer`` of the run."""
+    """Run one case end to end (cmcfs_tpu/cli2d.py:27-174); returns
+    (solver, errs, sections), the last the run's ``Profiler``."""
     cfg = Config.load(config_path)
     params = FluidParams.physical(cfg.viscosity, cfg.density,
                                   cfg.R_specific, cfg.k, cfg.cv)
@@ -63,9 +67,23 @@ def run_case(input_path: str, field_path: str, output_path: str,
     finaltime = length * cfg.cycles
     if not quiet:
         print(f"dt = {dt:f}")
-        print(f"dispatch: backend={solver.backend} "
-              f"pcr={solver.backend == 'pcr'} "
-              f"dirs={solver.dispatch_report()}")
+        if solver.name == "ADI":
+            print(f"dispatch: backend={solver.backend} "
+                  f"pcr={solver.backend == 'pcr'} "
+                  f"dirs={solver.dispatch_report()}")
+
+    t_resume = 0.0
+    if resume:
+        step0, t_resume, fields = load_checkpoint(resume)
+        solver.set_layer(fields["u"], fields["v"], fields["T"])
+        if "nu" in fields:
+            solver.next = State2D(*(torch.as_tensor(fields[k],
+                                                    device=solver.device)
+                                    for k in ("nu", "nv", "nT")))
+        else:
+            solver.next = solver.cur
+        if not quiet:
+            print(f"Resuming from step {step0}, t={t_resume:f}")
 
     # the reference writes the CDL header unconditionally, even in MultiVox
     # mode (FluidSolver2D.cpp:88)
@@ -75,7 +93,7 @@ def run_case(input_path: str, field_path: str, output_path: str,
                                     cfg.outdimx, cfg.outdimy)
     cur_out = output_path
 
-    prof = SectionTimer(solver.device)
+    prof = Profiler(device=solver.device)
     timer = CpuTimer()
     timer.start()
     errs = []
@@ -84,6 +102,16 @@ def run_case(input_path: str, field_path: str, output_path: str,
     t = dt
     i = 0
     nsteps = 0
+    while t_resume and t <= t_resume + dt * 0.5:
+        # fast-forward the frame and output bookkeeping to the resume point
+        currentframe = scene.frame_at(t)
+        if currentframe != lastframe:
+            if currentframe == 0:
+                currentcycle += 1
+            lastframe = currentframe
+            i = 0
+        t += dt
+        i += 1
     while t < finaltime:
         currentframe = scene.frame_at(t)
         layer_time = scene.layer_time(t)
@@ -133,6 +161,14 @@ def run_case(input_path: str, field_path: str, output_path: str,
                               and currentframe == frames - 1
                               and currentcycle == cfg.cycles)
                     writers.output_netcdf_2d_u(output_path, u, finish)
+        if checkpoint and i % cfg.out_time_steps == 0:
+            cur = [f.cpu().numpy() for f in solver.cur]
+            nxt = [f.cpu().numpy() for f in solver.next]
+            save_checkpoint(checkpoint, nsteps, t,
+                            **dict(zip(("u", "v", "T"), cur)),
+                            **dict(zip(("nu", "nv", "nT"), nxt)))
+            save_last_layer_txt(checkpoint + ".lastlayer.txt", currentframe,
+                                *cur)
         t += dt
         i += 1
         nsteps += 1
@@ -145,10 +181,11 @@ def run_case(input_path: str, field_path: str, output_path: str,
     return solver, errs, prof
 
 
-def main(argv=None) -> int:
+def main(argv=None, device="cuda") -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {"align": False, "CSV": False, "quiet": False}
     backend = "auto"
+    extras = {}
     rest = []
     i = 0
     while i < len(argv):
@@ -158,10 +195,9 @@ def main(argv=None) -> int:
         elif arg == "backend" and i + 1 < len(argv):
             backend = argv[i + 1]
             i += 1
-        elif arg in UNPORTED_FLAGS:
-            print(f"flag {arg!r} is not supported by the PyTorch port yet: "
-                  f"{UNPORTED_FLAGS[arg]}", file=sys.stderr)
-            return 2
+        elif arg in ("checkpoint", "resume") and i + 1 < len(argv):
+            extras[arg] = argv[i + 1]
+            i += 1
         else:
             rest.append(arg)
         i += 1
@@ -185,7 +221,8 @@ def main(argv=None) -> int:
 
     run_case(input_path, field_path, output_path, config_path,
              align=flags["align"], csv=flags["CSV"], backend=backend,
-             quiet=flags["quiet"])
+             quiet=flags["quiet"], checkpoint=extras.get("checkpoint"),
+             resume=extras.get("resume"), device=device)
     return 0
 
 

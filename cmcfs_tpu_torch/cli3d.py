@@ -5,15 +5,20 @@ Usage (grammar of reference src/FluidSolver3D/FluidSolver3D.cpp:26-51):
 
 Flags: ``align``, ``CSV`` (section table as CSV), ``quiet``, ``backend
 auto|fused_nl|fused_pcr|fused_bf16|fused_pcr_bf16|fused_full|fused_dma|fused|
-scan|pallas|pcr``;
+scan|pallas|pcr``; ``dump_grid`` (the mask as a BMP stack, one file a Z
+slice, in ``<output_base>_grid_3d/``); ``profile`` (each part of the ADI
+step timed on its own: CopyLayer, SolveSegments_Z/Y/X, MergeLayer,
+EvalDivError); ``checkpoint <path>`` (the state as ``<path>.npz`` at each
+output step) and ``resume <path.npz>`` (continue from one, appending to
+the NetCDF file); ``carried`` (accepted: the port runs the per-step
+loop).  The config's ``solver`` line picks ADI, Explicit or Stable.
 ``transpose`` and ``decompose`` are accepted and have no effect, as in
-cmcfs_tpu.  The run needs a CUDA device.
-Flags of cmcfs_tpu's CLI that the port does not have yet exit with
-status 2 and name their ROADMAP item.
+cmcfs_tpu.  The run needs a CUDA device.  The multi-GPU flags of
+cmcfs_tpu's CLI exit with status 2 and name their ROADMAP item.
 """
 from __future__ import annotations
 
-import contextlib
+import os
 import sys
 import time
 
@@ -27,26 +32,32 @@ from .core.scene3d import Bathymetry, Scene3D
 from .geom.grid3d import Grid3D
 from .geom.raster2d import Grid2D
 from .io import writers
+from .io.checkpoint import load_checkpoint, save_checkpoint
+from .io.image import mask_to_bmp_stack
 from .io.project import find_file
+from .models.common3d import State3D
 from .models.solver3d import make_solver_3d
+from .utils.profiler import Profiler
 from .utils.timer import CpuTimer, print_time_step_info
 
 # cmcfs_tpu CLI flags the port does not have yet, and where they are queued
 UNPORTED_FLAGS = {
     "GPU": "multi-GPU runs (ROADMAP A8)",
     "shards": "multi-GPU runs (ROADMAP A8)",
-    "blocking": "the Z-blocked wavefront X sweep (ROADMAP A8)",
+    "blocking": "the Z-blocked wavefront X sweep across GPUs (ROADMAP A8)",
     "balance": "multi-GPU load balancing (ROADMAP A8)",
     "hosts": "multi-host runs (ROADMAP A8)",
     "rank": "multi-host runs (ROADMAP A8)",
     "coordinator": "multi-host runs (ROADMAP A8)",
-    "checkpoint": "checkpoint/resume (ROADMAP A5)",
-    "resume": "checkpoint/resume (ROADMAP A5)",
-    "orbax": "the orbax checkpoint tier (ROADMAP A5)",
-    "carried": "the carried-state loop (ROADMAP A5)",
-    "profile": "the per-direction profiled step (ROADMAP A5)",
-    "dump_grid": "the BMP mask dump (ROADMAP A5)",
+    "orbax": "the orbax checkpoint tier, which snapshots sharded arrays "
+             "(ROADMAP A8)",
 }
+
+# what cmcfs_tpu prints when its carried-state loop cannot engage
+# (cli3d.py:210-213); the port keeps no carried layout (ROADMAP "Not
+# ported") and always runs the per-step loop
+CARRIED_NOTE = ("carried: cannot engage on this dispatch — "
+                "running the per-step loop")
 
 
 BF16_STEP_WARN_THRESHOLD = 200
@@ -105,52 +116,14 @@ def load_case(input_path: str, config_path: str, align: bool = False):
                                                          align=align)
 
 
-class SectionTimer:
-    """Named wall-clock sections (count / total / average ms), each closed
-    by a device synchronize so queued kernels count where they ran."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.events: dict[str, list] = {}
-        self._wall0 = time.perf_counter()
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            ev = self.events.setdefault(name, [0, 0.0])
-            ev[0] += 1
-            ev[1] += time.perf_counter() - t0
-
-    def report(self, csv: bool = False) -> str:
-        rows = sorted(self.events.items(), key=lambda kv: -kv[1][1])
-        wall = time.perf_counter() - self._wall0
-        if csv:
-            out = ["event,count,total_ms,avg_ms"]
-            out += [f"{k},{c},{t * 1e3:.3f},{t * 1e3 / max(c, 1):.3f}"
-                    for k, (c, t) in rows]
-            out.append(f"overall_sec,,{wall:.3f},")
-        else:
-            out = [f"{'event':<24}{'count':>8}{'total ms':>14}{'avg ms':>12}"]
-            out += [f"{k:<24}{c:>8}{t * 1e3:>14.3f}{t * 1e3 / max(c, 1):>12.3f}"
-                    for k, (c, t) in rows]
-            out.append(f"overall: {wall:.3f} sec")
-        return "\n".join(out)
-
-
 def run_case(input_path: str, output_base: str, config_path: str,
              align: bool = False, csv: bool = False, backend: str = "auto",
-             quiet: bool = False, max_steps: int | None = None,
-             collect_errs: bool = False, device="cuda"):
-    """Run one case end to end; returns (solver, errs)."""
+             quiet: bool = False, dump_grid: bool = False,
+             max_steps: int | None = None, collect_errs: bool = False,
+             checkpoint: str | None = None, resume: str | None = None,
+             profile: bool = False, carried: bool = False, device="cuda"):
+    """Run one case end to end (cmcfs_tpu/cli3d.py:101-334 on one
+    device); returns (solver, errs)."""
     t0 = time.perf_counter()
     cfg, params, grid = load_case(input_path, config_path, align=align)
     build_s = time.perf_counter() - t0
@@ -160,6 +133,8 @@ def run_case(input_path: str, output_base: str, config_path: str,
               f"(host build {build_s:.2f} s)")
         print(f"NODE_IN points = {n_in} of total "
               f"{grid.dimx * grid.dimy * grid.dimz}, volume = {volume:f}")
+    if dump_grid:
+        mask_to_bmp_stack(grid.types, output_base + "_grid_3d")
 
     solver = make_solver_3d(cfg.solver, backend=backend, device=device)
     solver.init(grid, params)
@@ -177,18 +152,22 @@ def run_case(input_path: str, output_base: str, config_path: str,
         print(warn, file=sys.stderr)
 
     depths = getattr(grid, "bathy", None)
+    out_path = output_base + "_res.nc"
+    # resuming appends to the existing output (the reference appends
+    # records, IO.h:350-388)
     nc = writers.NetCDF3DOutput(
-        output_base + "_res.nc", grid.bbox_min, grid.bbox_max,
+        out_path, grid.bbox_min, grid.bbox_max,
         dt * cfg.out_time_steps, finaltime, cfg.outdimx, cfg.outdimy,
         cfg.outdimz, cfg.out_vars, xy_degree_units=cfg.in_fmt == "SeaNetCDF",
-        depths=None if depths is None else depths.depth)
+        depths=None if depths is None else depths.depth,
+        append=bool(resume) and os.path.exists(out_path))
 
-    if not quiet:
+    if not quiet and solver.name == "ADI":
         rep = solver.dispatch_report(cfg.num_local)
         print(f"dispatch: backend={rep['backend']} pad={rep['pad']} "
               f"pcr={rep['pcr']} bf16={rep['bf16']} dirs={rep['dirs']}")
 
-    prof = SectionTimer(solver.device)
+    prof = Profiler(device=solver.device)
     timer = CpuTimer()
     timer.start()
     errs = []
@@ -196,12 +175,38 @@ def run_case(input_path: str, output_base: str, config_path: str,
     t = dt
     i = 0
     nsteps = 0
+    if resume:
+        step0, t_ck, fields = load_checkpoint(resume)
+
+        def field(k):
+            return torch.as_tensor(fields[k], dtype=torch.float32,
+                                   device=solver.device)
+
+        solver.cur = State3D(*(field(k) for k in ("u", "v", "w", "T")))
+        solver.next = State3D(*(field(k) for k in ("nu", "nv", "nw", "nT")))
+        while t <= t_ck + dt * 0.5:
+            t += dt
+            i += 1
+            if (i - 1) % cfg.out_time_steps == 0:
+                out_layer += 1
+        if not quiet:
+            print(f"Resuming from step {step0}, t={t_ck:f}")
+    if carried and solver.name == "ADI" and not profile and not quiet:
+        print(CARRIED_NOTE, file=sys.stderr)
+
     while t < finaltime:
         compute_err = (i % 10 == 0) or (t + dt >= finaltime)
         with prof.section("UpdateBoundaries"):
             solver.update_boundaries()
-        with prof.section("TimeStep"):
-            solver.time_step(dt, cfg.num_global, cfg.num_local, compute_err)
+        if profile:
+            # each part of the step timed on its own (the reference's
+            # PROFILE_ENABLE event table, Profiler.h:44-134)
+            solver.time_step_profiled(dt, cfg.num_global, cfg.num_local,
+                                      prof)
+        else:
+            with prof.section("TimeStep"):
+                solver.time_step(dt, cfg.num_global, cfg.num_local,
+                                 compute_err)
         if collect_errs:
             errs.append(solver.last_err)
         timer.stop()
@@ -214,6 +219,12 @@ def run_case(input_path: str, output_base: str, config_path: str,
                                               cfg.outdimz)
                 nc.write_layer(out_layer, u, v, w, T)
             out_layer += 1
+        if checkpoint and i % cfg.out_time_steps == 0:
+            cur = [f.cpu().numpy() for f in solver.cur]
+            nxt = [f.cpu().numpy() for f in solver.next]
+            save_checkpoint(checkpoint, nsteps, t,
+                            **dict(zip(("u", "v", "w", "T"), cur)),
+                            **dict(zip(("nu", "nv", "nw", "nT"), nxt)))
         t += dt
         i += 1
         nsteps += 1
@@ -225,10 +236,12 @@ def run_case(input_path: str, output_base: str, config_path: str,
     return solver, errs
 
 
-def main(argv=None) -> int:
+def main(argv=None, device="cuda") -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    flags = {"align": False, "CSV": False, "quiet": False}
+    flags = {"align": False, "CSV": False, "quiet": False, "dump_grid": False,
+             "profile": False, "carried": False}
     backend = "auto"
+    extras = {}
     rest = []
     i = 0
     while i < len(argv):
@@ -237,6 +250,9 @@ def main(argv=None) -> int:
             flags[arg] = True
         elif arg == "backend" and i + 1 < len(argv):
             backend = argv[i + 1]
+            i += 1
+        elif arg in ("checkpoint", "resume") and i + 1 < len(argv):
+            extras[arg] = argv[i + 1]
             i += 1
         elif arg in UNPORTED_FLAGS:
             print(f"flag {arg!r} is not supported by the PyTorch port yet: "
@@ -252,7 +268,10 @@ def main(argv=None) -> int:
         return 2
     run_case(find_file(rest[0]), rest[1], find_file(rest[2]),
              align=flags["align"], csv=flags["CSV"], backend=backend,
-             quiet=flags["quiet"])
+             quiet=flags["quiet"], dump_grid=flags["dump_grid"],
+             checkpoint=extras.get("checkpoint"), resume=extras.get("resume"),
+             profile=flags["profile"], carried=flags["carried"],
+             device=device)
     return 0
 
 

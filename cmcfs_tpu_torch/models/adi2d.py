@@ -143,13 +143,13 @@ def _rhs(axis: int, cur: State2D, temp_local: State2D, pa: ParamsArgs, dt):
     grad_T = stencil.d1(temp_local.T, h, axis)
     diss = (stencil.diss_x_2d if axis == 0 else stencil.diss_y_2d)(
         temp_local.u, temp_local.v, pa.dx, pa.dy)
-    d_u = cur.u / dt
-    d_v = cur.v / dt
+    d_u = stencil.over(cur.u, dt)
+    d_v = stencil.over(cur.v, dt)
     if axis == 0:
         d_u = d_u - pa.v_T * grad_T
     else:
         d_v = d_v - pa.v_T * grad_T
-    d_T = cur.T / dt + pa.t_phi * diss
+    d_T = stencil.over(cur.T, dt) + pa.t_phi * diss
     return (d_u, d_v, d_T), (h, _F(1.0) / dt, pa.v_vis / (h * h),
                              pa.t_vis / (h * h))
 

@@ -53,6 +53,7 @@ fallback's arithmetic are float32, and the step returns float32.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -330,16 +331,23 @@ def _step_paths(ga: GridArrays3D, backend: str, num_local: int,
     return [rep["dirs"][name] for _, name in _AXES]
 
 
+def _no_section(name):
+    return contextlib.nullcontext()
+
+
 def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
                     num_global: int, num_local: int, pa: ParamsArgs3D,
                     backend: str = "auto", exact: bool = True,
                     compute_error: bool = True,
-                    merge_ok: tuple = (False, False, False)):
+                    merge_ok: tuple = (False, False, False),
+                    section=_no_section):
     """One reference TimeStep (AdiSolver3D.cpp:306-391).
 
     Returns (new_cur, err); ``err`` is a 0-d float32 tensor, or -1.0 when
     ``compute_error`` is False.  ``nxt_prev`` is the persistent next layer;
-    only its BOUND/VALVE cells are re-seeded from ``cur``."""
+    only its BOUND/VALVE cells are re-seeded from ``cur``.  ``section(name)``
+    gives a context for each part of the step, under the reference's event
+    names (``adi_timestep_3d_profiled``)."""
     backend = resolve_backend(backend)
     paths = _step_paths(ga, backend, num_local, merge_ok)
     # the global MergeLayer folds into X's final pair (adi3d.py:1727-1745)
@@ -348,15 +356,17 @@ def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
     types = ga.types
     is_bv = (types == NodeType.BOUND) | (types == NodeType.VALVE)
     is_in = types == NodeType.IN
-    cur4 = torch.stack(tuple(cur))
-    nxt4 = torch.where(is_bv, cur4, torch.stack(tuple(nxt_prev)))
+    with section("CopyLayer"):
+        cur4 = torch.stack(tuple(cur))
+        nxt4 = torch.where(is_bv, cur4, torch.stack(tuple(nxt_prev)))
     temp4 = cur4
     half4 = torch.zeros_like(cur4)
 
     def direction(axis, rhs4, temp4, out4, gmerge=False):
-        return _solve_direction(axis, paths[axis], rhs4, temp4, out4, ga, pa,
-                                scals[axis], num_local, exact, gmerge,
-                                backend)
+        with section("SolveSegments_" + "XYZ"[axis]):
+            return _solve_direction(axis, paths[axis], rhs4, temp4, out4, ga,
+                                    pa, scals[axis], num_local, exact, gmerge,
+                                    backend)
 
     # the bf16 backends' Z rhs, rounded once a step for the kernels
     rhs_z = (cur4.bfloat16() if backend in BF16_BACKENDS
@@ -365,12 +375,33 @@ def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
         temp4, nxt4 = direction(2, rhs_z, temp4, nxt4)
         temp4, half4 = direction(1, nxt4, temp4, half4)
         temp4, nxt4 = direction(0, half4, temp4, nxt4, gmerge=gfold)
-        if not gfold:
-            temp4 = torch.where(is_in, (temp4 + nxt4) / 2.0, temp4)
+        with section("MergeLayer"):
+            if not gfold:
+                temp4 = torch.where(is_in, (temp4 + nxt4) / 2.0, temp4)
     nxt = State3D(*nxt4.float().unbind(0))
-    if compute_error:
-        err = stencil.div_error_3d(nxt.u, nxt.v, nxt.w, types,
-                                   pa.dx, pa.dy, pa.dz)
-    else:
-        err = torch.tensor(-1.0, dtype=torch.float32)
+    with section("EvalDivError"):
+        if compute_error:
+            err = stencil.div_error_3d(nxt.u, nxt.v, nxt.w, types,
+                                       pa.dx, pa.dy, pa.dz)
+        else:
+            err = torch.tensor(-1.0, dtype=torch.float32)
     return nxt, err
+
+
+def adi_timestep_3d_profiled(cur: State3D, nxt_prev: State3D,
+                             ga: GridArrays3D, dt, num_global: int,
+                             num_local: int, pa: ParamsArgs3D, prof,
+                             backend: str = "auto", exact: bool = True,
+                             merge_ok: tuple = (False, False, False)):
+    """``adi_timestep_3d`` with each part timed into ``prof`` (a
+    ``utils.profiler.Profiler``) under the reference's event names
+    (CopyLayer, SolveSegments_Z/Y/X, MergeLayer, EvalDivError:
+    src/Common/Profiler.h:44-134, cmcfs_tpu's adi3d.py:1596-1654).  The
+    same kernels run and the result is the same; where X's final pair
+    folds the global merge (gmerge), MergeLayer times no work.  The
+    profiler synchronizes the device around each section.  Returns
+    (new_cur, err as a float)."""
+    nxt, err = adi_timestep_3d(cur, nxt_prev, ga, dt, num_global, num_local,
+                               pa, backend=backend, exact=exact,
+                               merge_ok=merge_ok, section=prof.section)
+    return nxt, float(err)

@@ -1,18 +1,20 @@
-"""Stateful 2D solver (port of cmcfs_tpu/models/solver2d.py, ADI only).
+"""Stateful 2D solvers (port of cmcfs_tpu/models/solver2d.py).
 
 Mirrors the reference Solver2D lifecycle (Init / UpdateBoundaries /
-TimeStep / SetGridBoundaries / GetLayer, src/FluidSolver2D/Solver2D.h).
-cmcfs_tpu's Explicit and Stable 2D schemes are not ported yet (ROADMAP
-A4) and raise here.
+TimeStep / SetGridBoundaries / GetLayer / SetLayer,
+src/FluidSolver2D/Solver2D.h) for its three schemes: ADI, Explicit and
+Stable.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.params import FluidParams
 from ..device import get_device
 from ..geom.raster2d import Grid2D
-from . import adi2d
-from .common2d import (get_layer, host_arrays, init_state, update_boundaries,
-                       upload)
+from . import adi2d, explicit2d, stable2d
+from .common2d import (State2D, get_layer, host_arrays, init_state,
+                       update_boundaries, upload)
 
 
 class SolverError(RuntimeError):
@@ -56,19 +58,31 @@ class Solver2DBase:
     def get_layer(self, outdimx: int, outdimy: int):
         return get_layer(self.next, outdimx, outdimy)
 
-    def _check(self, err: float, iters: int, threshold: float) -> None:
-        if iters > adi2d.MAX_GLOBAL_ITERS:
-            raise SolverError("Exceeded max number of iterations "
-                              f"({adi2d.MAX_GLOBAL_ITERS})")
-        if not (err <= threshold * 10):          # NaN-safe
-            raise SolverError(f"Error is too big! {err}")
+    def set_layer(self, u, v, T) -> None:
+        """Restore a checkpointed layer (reference Solver2D::SetLayer)."""
+        self.cur = State2D(*(torch.as_tensor(f, dtype=torch.float32,
+                                             device=self.device)
+                             for f in (u, v, T)))
 
     def time_step(self, dt: float, num_global: int, num_local: int) -> None:
-        raise NotImplementedError
+        """One step of the scheme (``_step``) and the reference's blow-up
+        check: exit(1) past MAX_GLOBAL_ITERS global iterations or an error
+        over ten times the scheme's threshold."""
+        nxt, err, it = self._step(dt, num_global, num_local)
+        self.last_err = float(err)
+        self.last_iters = it
+        if it > adi2d.MAX_GLOBAL_ITERS:
+            raise SolverError("Exceeded max number of iterations "
+                              f"({adi2d.MAX_GLOBAL_ITERS})")
+        if not (self.last_err <= self.threshold * 10):   # NaN-safe
+            raise SolverError(f"Error is too big! {self.last_err}")
+        self.next = nxt
+        self.cur = nxt
 
 
 class AdiSolver2D(Solver2DBase):
     name = "ADI"
+    threshold = adi2d.ERR_THRESHOLD
 
     def __init__(self, backend: str = "auto", exact: bool = True,
                  device="cuda"):
@@ -80,22 +94,40 @@ class AdiSolver2D(Solver2DBase):
         return adi2d.dispatch_report_2d(tuple(self.ga.types.shape),
                                         self.backend, self.stream_ok)
 
-    def time_step(self, dt: float, num_global: int, num_local: int) -> None:
-        nxt, err, it = adi2d.adi_timestep_2d(
+    def _step(self, dt, num_global, num_local):
+        return adi2d.adi_timestep_2d(
             self.cur, self.ga, dt, num_global, num_local, self.pa,
             backend=self.backend, exact=self.exact, stream_ok=self.stream_ok)
-        self.last_err = float(err)
-        self.last_iters = it
-        self._check(self.last_err, self.last_iters, adi2d.ERR_THRESHOLD)
-        self.next = nxt
-        self.cur = nxt
+
+
+class ExplicitSolver2D(Solver2DBase):
+    name = "Explicit"
+    threshold = explicit2d.ERR_THRESHOLD
+
+    def _step(self, dt, num_global, num_local):
+        return explicit2d.explicit_timestep_2d(
+            self.cur, self.next, self.ga, dt, num_global, num_local, self.pa)
+
+
+class StableSolver2D(Solver2DBase):
+    name = "Stable"
+    threshold = stable2d.DIV_ERR_THRESHOLD
+    last_poisson_iters = ()
+
+    def _step(self, dt, num_global, num_local):
+        # backend "sequential" selects the reference-exact Gauss-Seidel
+        # order (stable2d.SequentialSweep); any other is red-black.  The
+        # Poisson iteration counts are a diagnostic, not an output
+        mode = "sequential" if self.backend == "sequential" else "redblack"
+        nxt, err, it, self.last_poisson_iters = stable2d.stable_timestep_2d(
+            self.cur, self.next, self.ga, dt, num_global, num_local, self.pa,
+            mode=mode)
+        return nxt, err, it
 
 
 def make_solver(name: str, backend: str = "auto", exact: bool = True,
                 device="cuda") -> Solver2DBase:
-    if name in ("Explicit", "Stable"):
-        raise NotImplementedError(
-            f"2D solver {name!r} is not ported yet (ROADMAP A4)")
-    if name != "ADI":
-        raise KeyError(name)
-    return AdiSolver2D(backend=backend, exact=exact, device=device)
+    """``ADI``, ``Explicit`` or ``Stable`` (KeyError otherwise)."""
+    return {"ADI": AdiSolver2D, "Explicit": ExplicitSolver2D,
+            "Stable": StableSolver2D}[name](backend=backend, exact=exact,
+                                            device=device)

@@ -8,6 +8,8 @@ float32 does.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -21,9 +23,31 @@ def shift(f: torch.Tensor, offset: int, axis: int) -> torch.Tensor:
     return torch.roll(f, -offset, dims=axis)
 
 
+@functools.lru_cache(maxsize=64)
+def _divisor(s: float, dtype: torch.dtype, device: torch.device):
+    """A 0-d tensor holding s, made once for each (s, dtype, device); it
+    is only ever read."""
+    return torch.full((), s, dtype=dtype, device=device)
+
+
+def over(x: torch.Tensor, s) -> torch.Tensor:
+    """x / s for a float32 scalar s, the quotient correctly rounded on every
+    device, as cmcfs_tpu divides: PyTorch's CUDA division by a host scalar
+    multiplies by the scalar's rounded reciprocal instead, which parts from
+    the quotient by an ulp wherever s is not a power of two.  The divisor
+    is a cached device tensor, so a call costs one division kernel."""
+    return x / _divisor(float(_F(s)), x.dtype, x.device)
+
+
 def d1(f: torch.Tensor, h, axis: int) -> torch.Tensor:
     """(f[i+1] - f[i-1]) / (2h)"""
-    return (shift(f, 1, axis) - shift(f, -1, axis)) / (_F(2.0) * _F(h))
+    return over(shift(f, 1, axis) - shift(f, -1, axis), _F(2.0) * _F(h))
+
+
+def d2(f: torch.Tensor, h, axis: int) -> torch.Tensor:
+    """(f[i+1] - 2 f[i] + f[i-1]) / h^2"""
+    return over(shift(f, 1, axis) - 2 * f + shift(f, -1, axis),
+                _F(h) * _F(h))
 
 
 def diss_x_2d(u, v, dx, dy):

@@ -47,7 +47,8 @@ HOST_COPIES = ["core/types.py", "core/config.py", "core/params.py",
                "core/scene2d.py", "core/scene3d.py", "geom/raster2d.py",
                "geom/grid3d.py", "geom/synthetic.py", "ops/masks.py",
                "io/netcdf3.py",
-               "io/writers.py", "io/project.py", "utils/timer.py"]
+               "io/writers.py", "io/project.py", "io/image.py",
+               "utils/timer.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
@@ -55,6 +56,20 @@ def test_host_copies_equal_originals(rel):
     with open(os.path.join(ROOT, "cmcfs_tpu", rel)) as f, \
             open(os.path.join(ROOT, "cmcfs_tpu_torch", rel)) as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("fn", ["save_last_layer_txt", "load_last_layer_txt",
+                                "_norm", "save_checkpoint",
+                                "load_checkpoint"])
+def test_checkpoint_functions_equal_originals(fn):
+    """io/checkpoint.py keeps cmcfs_tpu's legacy text and npz tiers
+    verbatim (the orbax tier waits for multi-GPU runs, ROADMAP A8)."""
+    import inspect
+    from cmcfs_tpu.io import checkpoint as jck
+    from cmcfs_tpu_torch.io import checkpoint as tck
+    assert inspect.getsource(getattr(tck, fn)) == \
+        inspect.getsource(getattr(jck, fn))
+    assert not hasattr(tck, "save_checkpoint_orbax")
 
 
 def test_native_source_equals_original():
@@ -94,15 +109,45 @@ def test_cuda_device_raises_without_cuda():
     assert get_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flag", ["GPU", "shards", "blocking", "checkpoint",
-                                  "resume", "carried", "profile", "orbax",
-                                  "dump_grid", "hosts", "balance"])
+@pytest.mark.parametrize("flag", ["GPU", "shards", "blocking", "orbax",
+                                  "hosts", "balance", "rank", "coordinator"])
 def test_cli_refuses_unported_flag(flag, capsys):
+    """The multi-GPU flags and the orbax tier wait for ROADMAP A8."""
     argv = ["data.txt", "out", "config.txt", flag]
-    if flag in ("shards", "checkpoint", "resume", "hosts", "balance"):
+    if flag in ("shards", "hosts", "balance", "rank", "coordinator"):
         argv.append("2")
     assert cli3d.main(argv) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "ROADMAP A8" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["checkpoint", "resume", "carried", "profile",
+                                  "dump_grid"])
+def test_cli_accepts_ported_flag(flag, tmp_path):
+    """The single-card flags, refused until ROADMAP A5 was ported: each
+    parses and runs one CPU step of a tiny box case (16^3)."""
+    from scripts.gen_box_case import gen
+    data, cfgp = gen(str(tmp_path / "case"), dx=0.07, time_steps=2,
+                     num_global=1, num_local=2)
+    base = str(tmp_path / "out")
+    argv = [data, base, cfgp, flag, "quiet"]
+    if flag == "checkpoint":
+        argv.insert(4, base + "_ck")
+    if flag == "resume":
+        # a checkpoint of the state before the one step: step 0 at t = 0
+        solver, _ = cli3d.run_case(data, base, cfgp, quiet=True,
+                                   max_steps=1, device="cpu")
+        from cmcfs_tpu_torch.io.checkpoint import save_checkpoint
+        fields = {k: f.numpy() for k, f in
+                  zip(("u", "v", "w", "T", "nu", "nv", "nw", "nT"),
+                      tuple(solver.next) + tuple(solver.next))}
+        save_checkpoint(base + "_ck", 0, 0.0, **fields)
+        argv.insert(4, base + "_ck.npz")
+    assert cli3d.main(argv, device="cpu") == 0
+    assert os.path.getsize(base + "_res.nc") > 0
+    if flag == "checkpoint":
+        assert os.path.exists(base + "_ck.npz")
+    if flag == "dump_grid":
+        assert len(os.listdir(base + "_grid_3d")) > 0
 
 
 def _box():
@@ -185,8 +230,23 @@ def test_bf16_horizon_warning():
 
 @pytest.mark.parametrize("name", ["Explicit", "Stable"])
 def test_unported_solvers_raise(name):
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_solver_3d(name, device="cpu")
+    """Explicit and Stable used to raise (ROADMAP A4); they build on the
+    CPU and one step on tests/test_solvers3d_ext.py's lid cavity (16^3)
+    equals cmcfs_tpu's within 1e-6 * max(1, max|field|)."""
+    from cmcfs_tpu.models.solver3d import make_solver_3d as jax_make
+    grid = lid_cavity_3d(16, 16, 16, dx=0.02, lid_velocity=0.2)
+    params = FluidParams.normalized(200.0, 0.72, 1.4)
+    port, ref = make_solver_3d(name, device="cpu"), jax_make(name)
+    assert port.name == ref.name == name
+    for s in (port, ref):
+        s.init(grid, params)
+        s.update_boundaries()
+        s.time_step(0.01, 2, 1)
+    assert abs(port.last_err - ref.last_err) <= 1e-4 * ref.last_err
+    for g, w in zip(port.cur, ref.cur):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-6 * max(1.0, np.abs(w).max()))
 
 
 def test_free_dual_grid_raises():

@@ -21,6 +21,7 @@
   and dimensions, values within one print quantum (0.001) of each other.
 """
 import itertools
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -155,8 +156,25 @@ def test_unported_backends_raise(backend):
 
 @pytest.mark.parametrize("name", ["Explicit", "Stable"])
 def test_unported_2d_solvers_raise(name):
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_solver(name, device="cpu")
+    """Explicit and Stable used to raise (ROADMAP A4); they build on the
+    CPU and one step on tests/test_solvers2d.py's synthetic lid cavity
+    equals cmcfs_tpu's within 1e-6 * max(1, max|field|), with the same
+    number of global iterations."""
+    from cmcfs_tpu.geom.synthetic import lid_cavity_2d
+    from cmcfs_tpu.models.solver2d import make_solver as jax_make
+    grid = lid_cavity_2d(24, 20, dx=0.01, lid_velocity=0.4)
+    params = FluidParams.normalized(150.0, 0.72, 1.4)
+    port, ref = make_solver(name, device="cpu"), jax_make(name)
+    assert port.name == ref.name == name
+    for s in (port, ref):
+        s.init(grid, params)
+        s.update_boundaries()
+        s.time_step(0.002, 2, 1)
+    assert port.last_iters == ref.last_iters
+    for g, w in zip(port.cur, ref.cur):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-6 * max(1.0, np.abs(w).max()))
 
 
 def test_box_case_grid_and_stream_ok(tmp_path):
@@ -214,9 +232,24 @@ def test_cli_cdl_matches_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["checkpoint", "resume"])
-def test_cli_refuses_unported_flag(flag, capsys):
-    assert cli2d.main(["data.txt", "out", "config.txt", flag, "x"]) == 2
-    assert "ROADMAP A5" in capsys.readouterr().err
+def test_cli_refuses_unported_flag(flag, tmp_path):
+    """``checkpoint`` and ``resume`` used to exit 2 (ROADMAP A5); they are
+    ported: on the 2D box case (dx 0.025), ``checkpoint`` writes the npz
+    and the legacy text layer, and ``resume`` continues from one with
+    the steps left."""
+    from scripts.gen_box_case import gen_2d
+    data, cfgp = gen_2d(str(tmp_path), dx=0.025, time_steps=3)
+    ck = str(tmp_path / "ck")
+    argv = [data, str(tmp_path / "out.cdl"), cfgp, "quiet"]
+    if flag == "resume":
+        cli2d.run_case(data, "", str(tmp_path / "first.cdl"), cfgp,
+                       quiet=True, max_steps=1, checkpoint=ck, device="cpu")
+        argv += ["resume", ck + ".npz"]
+    else:
+        argv += ["checkpoint", ck]
+    assert cli2d.main(argv, device="cpu") == 0
+    assert os.path.exists(ck + ".npz")
+    assert os.path.exists(ck + ".lastlayer.txt")
 
 
 def test_solver_2d_needs_cuda_by_default():
