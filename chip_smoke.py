@@ -51,9 +51,12 @@ and nvcc.  Phases, each of which raises on failure:
 13. the 2D CLI: ``cmcfs_tpu_torch.cli2d.run_case`` on the 2D box case
    (``fused_dma``: the line sweep) with CDL output and its section times
    (Prepare, UpdateBoundaries, TimeStep, Output); then one step each of
-   backends ``pallas`` and ``scan`` (tridiag_rows launches) and ``pcr``
-   (cyclic reduction in PyTorch ops, no kernel) from its state, each
-   against the ``fused_dma`` step;
+   backends ``pallas`` and ``scan`` (tridiag_rows launches), each bit for
+   bit the same step on the CPU, and ``pcr`` (cyclic reduction in PyTorch
+   ops, no kernel) from its state, with the distance of each to the
+   ``fused_dma`` step (and, for the rows, the CPU's own distance: the rows
+   divide by 2h where the line sweep multiplies by 1/(2h), which v_T
+   amplifies at this box's physical parameters);
 14. the 3D row path: one step each of ``pallas`` and ``scan`` from the
    256^3 pair slice's state (48 tridiag_rows launches each: (u, v, w)
    and T per direction and local iteration) and of ``pcr`` (no kernel),
@@ -124,9 +127,20 @@ and nvcc.  Phases, each of which raises on failure:
    the 2D box (state and CDL frames bit for bit); each scheme through
    both CLIs by the config's ``solver`` line;
 22. ``python -m cmcfs_tpu_torch.verify`` on the 256^3 box, 2 steps,
-   ``scan`` against ``auto``: returns 0.
+   ``scan`` against ``auto``: returns 0;
+23. the X split (``parallel/mesh.py``) on the one card, the MGPU_EMU
+   analogue (``devices=["cuda:0"] * N``): ``cli3d.run_case`` on the 256^3
+   box, ``auto``, over 2 and 4 shards, each step bit for bit phase 5's,
+   the error within 1e-6 relative, N times phase 5's pair launches,
+   ms/step beside phase 5's; ``balance EVEN_VOLUME`` over 2 shards, the
+   baffle over 2 (phase 16's steps, X's duals through the reshard) and
+   the 383^3 fallback over 2 (phase 8's first step), bit for bit; one
+   nl=3 step over 2 (X on the fallback under a split, as cmcfs_tpu
+   dispatches it) within TOL of phase 7's; ``cli3d.main([..., "shards",
+   "2"])``, which refuses naming the visible count on one card and is
+   held bit for bit on two; under a minute.
 
-Phases 19-22 print their seconds.  Every kernel's launch counter is set to 0 just before a path is driven
+Phases 19-23 print their seconds.  Every kernel's launch counter is set to 0 just before a path is driven
 and read just after; launches made to compare a kernel with its plain
 version do not count.  The last lines are a JSON record of the kernels,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
@@ -135,6 +149,8 @@ or the port's package is not beside it.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -454,6 +470,36 @@ def ptxas_rows(log: str) -> list:
     return [tuple(r) for r in rows]
 
 
+class StepRecorder:
+    """While active (``with StepRecorder() as r``), each ADI step's new
+    state (the whole grid's stacked fields, ``AdiSolver3D.state``, on the
+    host) goes into ``r.states``, its first ``keep`` steps only, and each
+    step's error into ``r.errs``.  It wraps ``AdiSolver3D.time_step`` and
+    launches no kernel."""
+
+    def __init__(self, keep=None):
+        self.states, self.errs, self.keep = [], [], keep
+
+    def __enter__(self):
+        import torch
+        from cmcfs_tpu_torch.models import solver3d
+        self.cls = solver3d.AdiSolver3D
+        orig = self.orig = self.cls.time_step
+
+        def time_step(solver, *args, **kw):
+            orig(solver, *args, **kw)
+            if self.keep is None or len(self.states) < self.keep:
+                self.states.append(
+                    torch.stack(tuple(solver.state()[0])).cpu())
+            self.errs.append(solver.last_err)
+
+        self.cls.time_step = time_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.time_step = self.orig
+
+
 class Counters:
     """The launch counters of every kernel wrapper of the port."""
 
@@ -745,9 +791,11 @@ def main() -> int:
         return err
 
     per_step = NUM_GLOBAL * 3 * NUM_LOCAL
-    solver, got = run_slice(data, cfgp, "box", SLICE_STEPS, "pair",
-                            {"pair_sweep": SLICE_STEPS * per_step,
-                             "line_sweep": 0, "stream_sweep": 0})
+    # each step's state, which phase 23's split runs are held to
+    with StepRecorder() as p5_steps:
+        solver, got = run_slice(data, cfgp, "box", SLICE_STEPS, "pair",
+                                {"pair_sweep": SLICE_STEPS * per_step,
+                                 "line_sweep": 0, "stream_sweep": 0})
     rec["pair_sweep"]["launches"] = got["pair_sweep"]
     if tuple(solver.cur.u.shape) != shape:
         fail("mis-shaped fields after the slice")
@@ -791,11 +839,11 @@ def main() -> int:
     phase("7. odd num_local: cli3d.run_case, 256^3 box, ng=4 nl=3")
     data3, cfgp3 = gen(os.path.join(work, "b256nl3"), dx=BOX_DX,
                        time_steps=4, num_global=NUM_GLOBAL, num_local=3)
-    solver, got = run_slice(data3, cfgp3, "box_nl3", SLICE_STEPS,
-                            "pair+stream",
-                            {"pair_sweep": SLICE_STEPS * NUM_GLOBAL * 3 * 2,
-                             "stream_sweep": SLICE_STEPS * NUM_GLOBAL * 3,
-                             "line_sweep": 0})
+    with StepRecorder(keep=1) as p7_steps:
+        solver, got = run_slice(
+            data3, cfgp3, "box_nl3", SLICE_STEPS, "pair+stream",
+            {"pair_sweep": SLICE_STEPS * NUM_GLOBAL * 3 * 2,
+             "stream_sweep": SLICE_STEPS * NUM_GLOBAL * 3, "line_sweep": 0})
     rec["stream_sweep"]["launches"] = got["stream_sweep"]
     timing["256 nl=3"] = time_steps(solver, dt, 3, 2, math.prod(shape))
     del solver
@@ -807,10 +855,12 @@ def main() -> int:
                            time_steps=4, num_global=NUM_GLOBAL,
                            num_local=NUM_LOCAL)
     torch.cuda.reset_peak_memory_stats(dev)
-    solver, got = run_slice(data_l, cfgp_l, "box383", LONG_STEPS,
-                            "fallback",
-                            {"line_sweep": LONG_STEPS * per_step,
-                             "pair_sweep": 0, "stream_sweep": 0})
+    with StepRecorder(keep=1) as p8_steps:
+        solver, got = run_slice(data_l, cfgp_l, "box383", LONG_STEPS,
+                                "fallback",
+                                {"line_sweep": LONG_STEPS * per_step,
+                                 "pair_sweep": 0, "stream_sweep": 0})
+    grid_l, params_l = solver.grid, solver.params
     rec["line_sweep"]["launches"] = got["line_sweep"]
     shape_l = tuple(solver.cur.u.shape)
     if shape_l != BOX383_SHAPE:
@@ -1180,9 +1230,23 @@ def main() -> int:
     ref3, _, it_ref = adi2d.adi_timestep_2d(*args2, backend="fused_dma",
                                             **kw2)
     ref3 = torch.stack(ref3)
+    # the same state on the CPU: the rows divide adv by 2h (stencil.over),
+    # as cmcfs_tpu's rows do, where the line sweep multiplies by the float32
+    # 1/(2h), as cmcfs_tpu's kernels do; at this box's physical parameters
+    # v_T turns that ulp into about 0.01 on v (ROADMAP C1), on the CPU as
+    # on the card, so the row steps are held bit for bit to the CPU's
+    t0 = time.perf_counter()
+    args2_cpu = (c2.State2D(*(f.cpu() for f in solver2.cur)),
+                 c2.GridArrays2D(*(a.cpu() for a in solver2.ga))) + args2[2:]
+    ref3_cpu = torch.stack(adi2d.adi_timestep_2d(
+        *args2_cpu, backend="fused_dma", **kw2)[0])
+    print(f"CPU fused_dma step {time.perf_counter() - t0:.1f} s; the card's "
+          f"fused_dma step against it: max|delta| "
+          f"{max(max_rel_err(ref3.cpu(), ref3_cpu)[0]):.3e}")
     rows_launches = 0
     for backend in ("pallas", "scan", "pcr"):
         counters.reset()
+        it_want = it_ref
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         new3, _, it = adi2d.adi_timestep_2d(*args2, backend=backend, **kw2)
@@ -1207,19 +1271,35 @@ def main() -> int:
                 fail("2D pcr step: non-finite values")
             e = max(max_rel_err(new3, ref3)[0])
         else:
-            e = check_close(f"2D {backend} step vs fused_dma step",
-                            torch.stack(new3), ref3)
+            # the card's row step (the tridiag_rows kernel) against the
+            # CPU's (its plain version), bit for bit; its distance to the
+            # fused_dma step printed beside the CPU's own
+            new3 = torch.stack(new3)
+            cpu3, _, it_cpu = adi2d.adi_timestep_2d(*args2_cpu,
+                                                    backend=backend, **kw2)
+            cpu3 = torch.stack(cpu3)
+            e_cpu = float((new3.cpu() - cpu3).abs().max())
+            if not torch.equal(new3.cpu(), cpu3) or it != it_cpu:
+                fail(f"2D {backend} step on the card: max|delta| {e_cpu} "
+                     f"from the CPU's, {it} global iterations against "
+                     f"{it_cpu}")
+            e = max(max_rel_err(new3, ref3)[0])
+            print(f"{backend}: the card's step equals the CPU's bit for "
+                  f"bit; the CPU's {backend} step against its fused_dma "
+                  f"step: max|delta| "
+                  f"{max(max_rel_err(cpu3, ref3_cpu)[0]):.3e}")
+            it_want = it_cpu
         print(f"{backend}: {it} global iterations, launches {got}, "
               f"max|delta| vs fused_dma step {e:.3e}, {step_ms:.2f} ms for "
               f"the step ({smi})")
-        if got != want or (it != it_ref and backend != "pcr"):
+        if got != want or (it != it_want and backend != "pcr"):
             fail(f"2D {backend}: launches {got} (expected {want}), "
-                 f"{it} global iterations (fused_dma {it_ref})")
+                 f"{it} global iterations (expected {it_want})")
         rows_launches += got["tridiag_rows"]
         if backend != "pcr":
-            note("tridiag_rows_2d", e, [], [], 0)
+            note("tridiag_rows_2d", e_cpu, [], [], 0)
     rec["tridiag_rows_2d"]["launches"] = rows_launches
-    del solver2, args2, ref3, new3
+    del solver2, args2, ref3, new3, args2_cpu, ref3_cpu, cpu3
 
     # ------------------------------------------------- 14. 3D row path
     phase("14. the 3D row path: one step each of pallas, scan and pcr from "
@@ -1307,10 +1387,11 @@ def main() -> int:
              "all pair and duals on X")
     counters.reset()
     berrs = []
-    for _ in range(SLICE_STEPS):
-        bsolver.update_boundaries()
-        bsolver.time_step(BAFFLE_DT, NUM_GLOBAL, NUM_LOCAL)
-        berrs.append(bsolver.last_err)
+    with StepRecorder() as p16_steps:
+        for _ in range(SLICE_STEPS):
+            bsolver.update_boundaries()
+            bsolver.time_step(BAFFLE_DT, NUM_GLOBAL, NUM_LOCAL)
+            berrs.append(bsolver.last_err)
     torch.cuda.synchronize()
     got = counters.read()
     want = {k: 0 for k in got}
@@ -2093,6 +2174,149 @@ def main() -> int:
         print(out.stderr[-4000:], file=sys.stderr)
         fail(f"verify returned {out.returncode}")
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------- 23. the X split
+    t_phase = time.perf_counter()
+    phase(f"23. the X split on one card: cli3d.run_case on the 256^3 box "
+          f"(auto) over 2 and 4 shards, balance EVEN_VOLUME, the baffle, "
+          f"383^3 fallback and nl=3 over 2, cli3d.main shards 2")
+    from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+    n_cards = torch.cuda.device_count()
+    print(f"torch.cuda.device_count() = {n_cards}")
+
+    def same_steps(what, got, want):
+        """Each recorded step of ``got`` bit for bit ``want``'s, each error
+        within 1e-6 relative (the sums' order differs over shards)."""
+        if not got.states or len(got.states) > len(want.states):
+            fail(f"{what}: {len(got.states)} steps recorded")
+        for k, (a, b) in enumerate(zip(got.states, want.states)):
+            if not torch.equal(a, b):
+                fail(f"{what}: step {k + 1} differs from the unsharded "
+                     f"step, max|delta| {float((a - b).abs().max())}")
+        for a, b in zip(got.errs, want.errs):
+            if not abs(a - b) <= 1e-6 * abs(b):
+                fail(f"{what}: error {a} against the unsharded {b}")
+        print(f"{what}: {len(got.states)} steps bit for bit the unsharded "
+              f"steps; errors {got.errs} (unsharded "
+              f"{want.errs[:len(got.errs)]})")
+
+    p5_launches = rec["pair_sweep"]["launches"]
+    for n in (2, 4):
+        counters.reset()
+        with StepRecorder() as r:
+            ssolver, _ = cli3d.run_case(
+                data, os.path.join(work, f"box_x{n}"), cfgp,
+                max_steps=SLICE_STEPS, collect_errs=True, device=dev,
+                shards=n, devices=[dev] * n)
+        torch.cuda.synchronize()
+        got = counters.read()
+        rep = ssolver.dispatch_report(NUM_LOCAL)
+        print(f"\n{n} shards, X cut into {ssolver.x_cuts}: dispatch "
+              f"{rep['dirs']} backend {rep['backend']} pad {rep['pad']}; "
+              f"launches {got}")
+        want = {k: 0 for k in got}
+        want["pair_sweep"] = n * p5_launches
+        if set(rep["dirs"].values()) != {"pair"} or got != want:
+            fail(f"{n} shards: dispatch {rep['dirs']}, launches {got} "
+                 f"(expected {want}: {n} x phase 5's)")
+        same_steps(f"256^3 auto over {n} shards", r, p5_steps)
+        timing[f"256 pair {n} shards"] = time_steps(
+            ssolver, dt, NUM_LOCAL, TIMED_STEPS, math.prod(shape))
+        del ssolver
+    print(f"ms/step (exact / reciprocal) on one card: 1 shard "
+          f"{timing['256 pair']}, 2 shards {timing['256 pair 2 shards']}, "
+          f"4 shards {timing['256 pair 4 shards']} ({smi})")
+
+    with StepRecorder() as r:
+        ssolver, _ = cli3d.run_case(
+            data, os.path.join(work, "box_bal"), cfgp, max_steps=SLICE_STEPS,
+            device=dev, shards=2, devices=[dev] * 2, balance="EVEN_VOLUME",
+            quiet=True)
+    print(f"balance EVEN_VOLUME over 2 shards: X cut into "
+          f"{ssolver.x_cuts}")
+    same_steps("balance EVEN_VOLUME over 2 shards", r, p5_steps)
+    del ssolver
+
+    ssolver = make_solver_3d("ADI", backend="auto", device=dev)
+    ssolver.init(bgrid, FluidParams.normalized(200.0, 0.72, 1.4))
+    ssolver.set_plan(make_x_mesh(devices=[dev] * 2))
+    counters.reset()
+    with StepRecorder() as r:
+        for _ in range(SLICE_STEPS):
+            ssolver.update_boundaries()
+            ssolver.time_step(BAFFLE_DT, NUM_GLOBAL, NUM_LOCAL)
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = {k: 0 for k in got}
+    want["pair_sweep_dual"] = 2 * SLICE_STEPS * NUM_GLOBAL * NUM_LOCAL
+    want["pair_sweep"] = 2 * SLICE_STEPS * NUM_GLOBAL * 2 * NUM_LOCAL
+    print(f"baffle over 2 shards: dispatch "
+          f"{ssolver.dispatch_report(NUM_LOCAL)['dirs']}, launches {got}")
+    if got != want:
+        fail(f"baffle over 2 shards: launches {got}, expected {want}")
+    same_steps("the 256^3 baffle over 2 shards", r, p16_steps)
+    del ssolver
+
+    ssolver = make_solver_3d("ADI", backend="auto", device=dev)
+    ssolver.init(grid_l, params_l)
+    ssolver.set_plan(make_x_mesh(devices=[dev] * 2))
+    counters.reset()
+    with StepRecorder() as r:
+        ssolver.update_boundaries()
+        ssolver.time_step(dt_l, NUM_GLOBAL, NUM_LOCAL)
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = {k: 0 for k in got}
+    want["line_sweep"] = 2 * per_step
+    rep = ssolver.dispatch_report(NUM_LOCAL)
+    print(f"383^3 over 2 shards, X cut into {ssolver.x_cuts}: dispatch "
+          f"{rep['dirs']} pad {rep['pad']}, launches {got}")
+    if set(rep["dirs"].values()) != {"fallback"} or got != want:
+        fail(f"383^3 over 2 shards: dispatch {rep['dirs']}, launches {got} "
+             f"(expected {want})")
+    same_steps("383^3 fallback over 2 shards", r, p8_steps)
+    del ssolver, r
+    torch.cuda.empty_cache()
+
+    counters.reset()
+    with StepRecorder(keep=1) as r:
+        ssolver, _ = cli3d.run_case(
+            data3, os.path.join(work, "box_nl3_x2"), cfgp3, max_steps=1,
+            device=dev, shards=2, devices=[dev] * 2, quiet=True)
+    torch.cuda.synchronize()
+    got = counters.read()
+    rep = ssolver.dispatch_report(3)
+    print(f"nl=3 over 2 shards: dispatch {rep['dirs']}, launches {got}")
+    if rep["dirs"] != {"X": "fallback", "Y": "pair+stream",
+                       "Z": "pair+stream"} or not (
+            got["pair_sweep"] and got["stream_sweep"]
+            and got["line_sweep"]):
+        fail(f"nl=3 over 2 shards: dispatch {rep['dirs']}, launches {got}")
+    e = check_close("nl=3 step over 2 shards vs the unsharded step",
+                    r.states[0], p7_steps.states[0])
+    print(f"nl=3 over 2 shards (X on the fallback): max|delta| vs the "
+          f"unsharded step {e:.3e} (bound {TOL} x max(1, max|field|))")
+    del ssolver
+
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf), StepRecorder() as r:
+        rc = cli3d.main([data, os.path.join(work, "box_main2"), cfgp,
+                         "shards", "2", "quiet"])
+    msg = buf.getvalue().strip()
+    print(f"cli3d.main([..., 'shards', '2']): returned {rc}; {msg!r}")
+    if n_cards < 2:
+        if rc == 0 or f"only {n_cards} CUDA device" not in msg or r.states:
+            fail("cli3d shards 2 on fewer than 2 cards did not refuse "
+                 "naming the visible count")
+    else:
+        if rc != 0:
+            fail(f"cli3d shards 2 returned {rc}")
+        r.states, r.errs = (r.states[:SLICE_STEPS], r.errs[:SLICE_STEPS])
+        same_steps("cli3d.main shards 2 over 2 cards", r, p5_steps)
+    t23 = time.perf_counter() - t_phase
+    print(f"phase 23: {t23:.1f} s")
+    if t23 > 60:
+        fail(f"phase 23 took {t23:.1f} s, over its minute")
 
     # ------------------------------------------------------------ result
     phase("result")

@@ -13,8 +13,13 @@ output step) and ``resume <path.npz>`` (continue from one, appending to
 the NetCDF file); ``carried`` (accepted: the port runs the per-step
 loop).  The config's ``solver`` line picks ADI, Explicit or Stable.
 ``transpose`` and ``decompose`` are accepted and have no effect, as in
-cmcfs_tpu.  The run needs a CUDA device.  The multi-GPU flags of
-cmcfs_tpu's CLI exit with status 2 and name their ROADMAP item.
+cmcfs_tpu.  ``shards N`` (or ``GPU N``, the reference's grammar) splits X
+over the first N cards, and exits with status 2 naming the visible count
+when fewer are visible; ``balance EVEN_X|EVEN_SEGMENTS|EVEN_VOLUME``
+moves the split's cuts where cmcfs_tpu's padding puts them
+(``parallel/balance.py``).  The
+run needs a CUDA device.  cmcfs_tpu's other multi-device flags exit with
+status 2 and name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,7 +28,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from .core.config import Config
 from .core.params import FluidParams
@@ -35,22 +39,20 @@ from .io import writers
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.image import mask_to_bmp_stack
 from .io.project import find_file
-from .models.common3d import State3D
 from .models.solver3d import make_solver_3d
+from .parallel.mesh import make_x_mesh
 from .utils.profiler import Profiler
 from .utils.timer import CpuTimer, print_time_step_info
 
 # cmcfs_tpu CLI flags the port does not have yet, and where they are queued
 UNPORTED_FLAGS = {
-    "GPU": "multi-GPU runs (ROADMAP A8)",
-    "shards": "multi-GPU runs (ROADMAP A8)",
-    "blocking": "the Z-blocked wavefront X sweep across GPUs (ROADMAP A8)",
-    "balance": "multi-GPU load balancing (ROADMAP A8)",
-    "hosts": "multi-host runs (ROADMAP A8)",
-    "rank": "multi-host runs (ROADMAP A8)",
-    "coordinator": "multi-host runs (ROADMAP A8)",
+    "blocking": "the Z-blocked wavefront X sweep across GPUs (ROADMAP A8 "
+                "part 2)",
+    "hosts": "multi-host runs (ROADMAP A8 part 3)",
+    "rank": "multi-host runs (ROADMAP A8 part 3)",
+    "coordinator": "multi-host runs (ROADMAP A8 part 3)",
     "orbax": "the orbax checkpoint tier, which snapshots sharded arrays "
-             "(ROADMAP A8)",
+             "(ROADMAP A8 part 3)",
 }
 
 # what cmcfs_tpu prints when its carried-state loop cannot engage
@@ -121,9 +123,13 @@ def run_case(input_path: str, output_base: str, config_path: str,
              quiet: bool = False, dump_grid: bool = False,
              max_steps: int | None = None, collect_errs: bool = False,
              checkpoint: str | None = None, resume: str | None = None,
-             profile: bool = False, carried: bool = False, device="cuda"):
-    """Run one case end to end (cmcfs_tpu/cli3d.py:101-334 on one
-    device); returns (solver, errs)."""
+             profile: bool = False, carried: bool = False, device="cuda",
+             shards: int = 1, balance: str | None = None, devices=None):
+    """Run one case end to end (cmcfs_tpu/cli3d.py:101-334); returns
+    (solver, errs).  ``shards`` > 1 splits X over that many shards
+    (``parallel.mesh.make_x_mesh``): the first cards, ``devices`` when
+    given (an explicit list, e.g. ``["cuda:0"] * 4`` to run four shards on
+    one card), or CPU shards with ``device="cpu"``."""
     t0 = time.perf_counter()
     cfg, params, grid = load_case(input_path, config_path, align=align)
     build_s = time.perf_counter() - t0
@@ -138,6 +144,9 @@ def run_case(input_path: str, output_base: str, config_path: str,
 
     solver = make_solver_3d(cfg.solver, backend=backend, device=device)
     solver.init(grid, params)
+    if shards > 1:
+        solver.set_plan(make_x_mesh(shards, devices=devices, device=device),
+                        balance=balance)
 
     frames = grid.num_frames
     length = grid.cycle_len
@@ -165,7 +174,8 @@ def run_case(input_path: str, output_base: str, config_path: str,
     if not quiet and solver.name == "ADI":
         rep = solver.dispatch_report(cfg.num_local)
         print(f"dispatch: backend={rep['backend']} pad={rep['pad']} "
-              f"pcr={rep['pcr']} bf16={rep['bf16']} dirs={rep['dirs']}")
+              f"pcr={rep['pcr']} bf16={rep['bf16']} dirs={rep['dirs']} "
+              f"shards={shards}")
 
     prof = Profiler(device=solver.device)
     timer = CpuTimer()
@@ -177,13 +187,8 @@ def run_case(input_path: str, output_base: str, config_path: str,
     nsteps = 0
     if resume:
         step0, t_ck, fields = load_checkpoint(resume)
-
-        def field(k):
-            return torch.as_tensor(fields[k], dtype=torch.float32,
-                                   device=solver.device)
-
-        solver.cur = State3D(*(field(k) for k in ("u", "v", "w", "T")))
-        solver.next = State3D(*(field(k) for k in ("nu", "nv", "nw", "nT")))
+        solver.set_state([fields[k] for k in ("u", "v", "w", "T")],
+                         [fields[k] for k in ("nu", "nv", "nw", "nT")])
         while t <= t_ck + dt * 0.5:
             t += dt
             i += 1
@@ -220,8 +225,8 @@ def run_case(input_path: str, output_base: str, config_path: str,
                 nc.write_layer(out_layer, u, v, w, T)
             out_layer += 1
         if checkpoint and i % cfg.out_time_steps == 0:
-            cur = [f.cpu().numpy() for f in solver.cur]
-            nxt = [f.cpu().numpy() for f in solver.next]
+            cur, nxt = ([f.cpu().numpy() for f in st]
+                        for st in solver.state())
             save_checkpoint(checkpoint, nsteps, t,
                             **dict(zip(("u", "v", "w", "T"), cur)),
                             **dict(zip(("nu", "nv", "nw", "nT"), nxt)))
@@ -251,9 +256,16 @@ def main(argv=None, device="cuda") -> int:
         elif arg == "backend" and i + 1 < len(argv):
             backend = argv[i + 1]
             i += 1
-        elif arg in ("checkpoint", "resume") and i + 1 < len(argv):
+        elif arg in ("checkpoint", "resume", "shards",
+                     "balance") and i + 1 < len(argv):
             extras[arg] = argv[i + 1]
             i += 1
+        elif arg == "GPU":
+            # the reference's grammar, GPU [n] (FluidSolver3D.cpp:26-41): n
+            # cards are n shards
+            if i + 1 < len(argv) and argv[i + 1].isdigit():
+                extras.setdefault("shards", argv[i + 1])
+                i += 1
         elif arg in UNPORTED_FLAGS:
             print(f"flag {arg!r} is not supported by the PyTorch port yet: "
                   f"{UNPORTED_FLAGS[arg]}", file=sys.stderr)
@@ -266,12 +278,21 @@ def main(argv=None, device="cuda") -> int:
     if len(rest) < 3:
         print(__doc__)
         return 2
+    shards = int(extras.get("shards", 1))
+    devices = None
+    if shards > 1:
+        try:
+            devices = make_x_mesh(shards, device=device).devices
+        except ValueError as e:
+            print(f"shards {shards}: {e}", file=sys.stderr)
+            return 2
     run_case(find_file(rest[0]), rest[1], find_file(rest[2]),
              align=flags["align"], csv=flags["CSV"], backend=backend,
              quiet=flags["quiet"], dump_grid=flags["dump_grid"],
              checkpoint=extras.get("checkpoint"), resume=extras.get("resume"),
              profile=flags["profile"], carried=flags["carried"],
-             device=device)
+             device=device, shards=shards, balance=extras.get("balance"),
+             devices=devices)
     return 0
 
 

@@ -183,12 +183,14 @@ def line_args(axis: int, cur: State2D, temp_local: State2D, ga: GridArrays2D,
 def row_args(axis: int, cur: State2D, temp_local: State2D, ga: GridArrays2D,
              dt, pa: ParamsArgs):
     """The rows branch's materialized (a, b, c, d), each (3, nx, ny) for
-    (u, v, T) (adi2d.py:75-84, 139-145); advection divides by 2h."""
+    (u, v, T) (adi2d.py:75-84, 139-145); advection divides by 2h,
+    correctly rounded on every device (``stencil.over``)."""
     (d_u, d_v, d_T), (h, inv_dt, v_vis_h2, t_vis_h2) = _rhs(
         axis, cur, temp_local, pa, dt)
     cls = ga.cls_x if axis == 0 else ga.cls_y
     free = ga.bct == BCtype.FREE
-    adv_2h = (temp_local.u if axis == 0 else temp_local.v) / (_F(2.0) * h)
+    adv_2h = stencil.over(temp_local.u if axis == 0 else temp_local.v,
+                          _F(2.0) * h)
     rows = [build_abc(cls, free, adv_2h, vis, inv_dt + _F(2.0) * vis,
                       bc2d=True) + (_fold(cls, free, d_int, val),)
             for vis, d_int, val in ((v_vis_h2, d_u, ga.bc_u),

@@ -1,4 +1,4 @@
-"""3D ADI time step (port of cmcfs_tpu/models/adi3d.py, single device).
+"""3D ADI time step (port of cmcfs_tpu/models/adi3d.py).
 
 Numerics replicate src/FluidSolver3D/AdiSolver3D.cpp as the JAX package
 does: per global iteration a Z sweep (rhs cur -> next), a Y sweep (next ->
@@ -39,6 +39,12 @@ The step keeps the fields stacked (4, nx, ny, nz): it stacks ``cur`` and
 ``nxt_prev`` once, and the returned State3D's fields are views of one
 stacked tensor.
 
+Under a ``plan`` (``parallel/mesh.py``) X splits over the plan's shards,
+as cmcfs_tpu's mesh splits it, and the dispatch applies cmcfs_tpu's rules
+for a mesh: X and Y pad to lcm(tile, N) in ``_step_pad``, X with an odd
+num_local and X's stream path go to the fallback, ``pallas`` runs as
+``scan``.  Each path runs its kernels once a shard.
+
 The bf16 backends (``fused_bf16``, ``fused_pcr_bf16``) store the kernels'
 payloads in bfloat16 and compute in float32, rounding where cmcfs_tpu
 rounds: the pair and stream sweeps read rhs and out_prev rounded
@@ -54,6 +60,7 @@ fallback's arithmetic are float32, and the step returns float32.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -129,65 +136,85 @@ def _nl_scal(axis: int, pa: ParamsArgs3D, dt) -> np.ndarray:
                      one / (two * h2)], dtype=np.float32)
 
 
-def resolve_backend(backend: str) -> str:
-    """``auto`` means ``fused_nl``: the card's default, as the TPU's."""
+def resolve_backend(backend: str, plan=None) -> str:
+    """``auto`` means ``fused_nl``: the card's default, as the TPU's (under
+    a plan too: cmcfs_tpu resolves it so on its target, the TPU).  Under
+    a plan ``pallas`` runs as ``scan`` (cmcfs_tpu adi3d.py:1680-1682)."""
     backend = "fused_nl" if backend == "auto" else backend
+    if plan is not None and backend == "pallas":
+        backend = "scan"
     if backend in BACKENDS:
         return backend
     raise KeyError(f"unknown backend {backend!r}")
 
 
-def _step_pad(shape3: tuple, backend: str):
-    """cmcfs_tpu's step-level tile padding decision (adi3d.py:716-743) on
-    a single device: the (px, py, pz) pads to (8, 128, 128) multiples when
-    they grow the grid by at most 25 %, else None; None for the
-    row backends (scan, pallas, pcr), as cmcfs_tpu pads only its fused
-    list."""
+def _step_pad(shape3: tuple, backend: str, plan=None):
+    """cmcfs_tpu's step-level tile padding decision (adi3d.py:716-743):
+    the (px, py, pz) pads to (8, 128, 128) multiples when they grow the
+    grid by at most 25 %, else None; None for the row backends (scan,
+    pallas, pcr), as cmcfs_tpu pads only its fused list.  Under a plan of
+    N shards X and Y pad to lcm(tile, N) multiples."""
     if backend not in FUSED:
         return None
-    tgt = tuple(-n % t for n, t in zip(shape3, _STEP_TILES))
+    tiles = _STEP_TILES
+    if plan is not None:
+        tiles = (math.lcm(tiles[0], plan.n), math.lcm(tiles[1], plan.n),
+                 tiles[2])
+    tgt = tuple(-n % t for n, t in zip(shape3, tiles))
     grow = np.prod([n + p for n, p in zip(shape3, tgt)]) / max(
         int(np.prod(shape3)), 1)
     return tgt if any(tgt) and grow <= 1.25 else None
 
 
-def _nl_pair_active(n_sweep: int, backend: str, merge_ok_ax: bool,
-                    dual_free: bool, num_local: int) -> bool:
-    """Does this direction run the pair sweep (adi3d.py:459-479)?"""
+def _nl_pair_active(axis: int, n_sweep: int, backend: str,
+                    merge_ok_ax: bool, dual_free: bool, num_local: int,
+                    plan=None) -> bool:
+    """Does this direction run the pair sweep (adi3d.py:459-479)?  Under a
+    plan, X with an odd num_local does not: its trailing iteration would
+    need the stream sweep, which cmcfs_tpu does not run on resharded X
+    lines."""
     if backend not in PAIR_BACKENDS or num_local < 2:
+        return False
+    if plan is not None and axis == 0 and num_local % 2 != 0:
         return False
     if not dual_free and num_local % 2 != 0:
         return False
     return merge_ok_ax and n_sweep <= MAX_SWEEP
 
 
-def _dir_path(n_sweep: int, backend: str, merge_ok_ax: bool,
-              dual_free: bool, num_local: int) -> str:
-    """cmcfs_tpu's _dir_path (adi3d.py:482-507) on a single device."""
+def _dir_path(axis: int, n_sweep: int, backend: str, merge_ok_ax: bool,
+              dual_free: bool, num_local: int, plan=None) -> str:
+    """cmcfs_tpu's _dir_path (adi3d.py:482-507); under a plan X never
+    streams."""
     if backend not in ("fused_full",) + PAIR_BACKENDS or n_sweep > MAX_SWEEP:
         return "fallback"
-    if _nl_pair_active(n_sweep, backend, merge_ok_ax, dual_free, num_local):
+    if _nl_pair_active(axis, n_sweep, backend, merge_ok_ax, dual_free,
+                       num_local, plan):
         return "pair" if num_local % 2 == 0 else "pair+stream"
-    return "stream" if merge_ok_ax and dual_free else "fallback"
+    if merge_ok_ax and dual_free and (plan is None or axis != 0):
+        return "stream"
+    return "fallback"
 
 
 def dispatch_report(shape3: tuple, duals: tuple, backend: str,
                     num_local: int,
-                    merge_ok: tuple = (False, False, False)) -> dict:
+                    merge_ok: tuple = (False, False, False),
+                    plan=None) -> dict:
     """Which implementation each direction runs, decided as cmcfs_tpu's
-    dispatch_report decides it (adi3d.py:746-793) on a single device:
+    dispatch_report decides it (adi3d.py:746-793):
     {"backend", "pad", "pcr", "bf16", "dirs"}, dirs {"X"|"Y"|"Z": "pair"|
     "pair+stream"|"stream"|"fallback"}; ``pcr``: the pair directions
     reduce cyclically (``fused_pcr``, ``fused_pcr_bf16``); ``bf16``: the
     kernels' payloads are stored in bf16 (``fused_bf16``,
     ``fused_pcr_bf16``).  ``duals``: per axis, the grid keeps a dual pass
-    B (``GridArrays3D.cls_b``)."""
-    backend = resolve_backend(backend)
-    pad = _step_pad(tuple(shape3), backend)
+    B (``GridArrays3D.cls_b``); ``plan``: the X split over devices
+    (``parallel.mesh.ShardingPlan``), None on one device."""
+    backend = resolve_backend(backend, plan)
+    pad = _step_pad(tuple(shape3), backend, plan)
     pshape = (tuple(n + p for n, p in zip(shape3, pad)) if pad
               else tuple(shape3))
-    dirs = {name: _dir_path(pshape[ax], backend, merge_ok[ax],
-                            not duals[ax], num_local)
+    dirs = {name: _dir_path(ax, pshape[ax], backend, merge_ok[ax],
+                            not duals[ax], num_local, plan)
             for ax, name in _AXES}
     return dict(backend=backend, pad=pad, pcr=backend in PCR_BACKENDS,
                 bf16=backend in BF16_BACKENDS, dirs=dirs)
@@ -221,12 +248,13 @@ def fold_d(d, d_bc, cls):
 def row_coeffs(axis, adv, cls, ga, pa, scal, vi):
     """(a, b, c) of variable ``vi``'s materialized rows (solve_with_cls,
     adi3d.py:310-322; its ``_bc_rows_3d`` boundary rows, :194-205, are
-    build_abc's 3D rows); advection divides by 2h, as cmcfs_tpu's rows
-    do.  u, v and w share theirs."""
+    build_abc's 3D rows); advection divides by 2h, correctly rounded on
+    every device (``stencil.over``), as cmcfs_tpu's rows do.  u, v and w
+    share theirs."""
     h = (pa.dx, pa.dy, pa.dz)[axis]
     vis = scal[1] if vi == 3 else scal[0]
     free = (ga.bc_temp if vi == 3 else ga.bc_vel) == BCtype.FREE
-    return build_abc(cls, free, adv / (_F(2.0) * h), vis,
+    return build_abc(cls, free, stencil.over(adv, _F(2.0) * h), vis,
                      scal[2] + _F(2.0) * vis)
 
 
@@ -287,47 +315,72 @@ def _payload(bf16):
     return torch.Tensor.bfloat16 if bf16 else (lambda t: t)
 
 
-def _solve_direction(axis, path, rhs4, temp4, out4, ga, pa, scal,
-                     num_local, exact, gmerge, backend):
-    """SolveDirection (adi3d.py:1516-1566) on the chosen path; returns
-    (temp4, out4)."""
+def _solve_direction(axis, path, rhs, temp, out, gas, pa, scal, num_local,
+                     exact, gmerge, backend, sync=None):
+    """SolveDirection (adi3d.py:1516-1566) on the chosen path.  ``rhs``,
+    ``temp``, ``out`` and ``gas`` are lists, one entry a shard (one entry
+    on a single device); returns the lists (temp, out).  ``sync(*lists)``
+    fills the shards' halos of each list before a kernel call reads them
+    (None on a single device): the three fields before each pair, whose
+    halo lines each shard solves again so that the pair's second
+    iteration reads exact neighbours (cmcfs_tpu adi3d.py:590-603), and
+    ``temp``, which the stencils read across the split, before each
+    iteration of the other paths."""
+    temp, out = list(temp), list(out)
+    shards = range(len(temp))
     if path == "fallback":
         # UpdateSegment writes every segment cell incl. the BC endpoints
         # (AdiSolver3D.cpp:707-730); identity rows keep their values
-        written = ga.cls_a[axis] != 0
-        is_in = ga.types == NodeType.IN
+        written = [g.cls_a[axis] != 0 for g in gas]
+        is_in = [g.types == NodeType.IN for g in gas]
         for _ in range(num_local):
-            x = _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact,
-                                 backend)
-            out4 = torch.where(written, x, out4)
-            temp4 = torch.where(is_in, (temp4 + out4) / 2.0, temp4)
-        return temp4, out4
+            if sync:
+                sync(temp)
+            for i in shards:
+                x = _build_and_solve(axis, rhs[i], temp[i], gas[i], pa, scal,
+                                     exact, backend)
+                out[i] = torch.where(written[i], x, out[i])
+                temp[i] = torch.where(is_in[i], (temp[i] + out[i]) / 2.0,
+                                      temp[i])
+        return temp, out
     n_left = num_local
     bf16 = backend in BF16_BACKENDS
     if path in ("pair", "pair+stream"):
         sweep = pcr_sweep if backend in PCR_BACKENDS else pair_sweep
         pay = _payload(bf16)
-        rhs_p = pay(rhs4)
+        rhs_p = [pay(r) for r in rhs]
         pairs = num_local // 2
         for k in range(pairs):
-            out4, temp4 = sweep(temp4, ga.cls_a[axis], ga.bc_vel, ga.bc_temp,
-                                rhs_p, pay(out4), scal, axis, exact,
-                                gmerge and k == pairs - 1,
-                                ga.dual_flags[axis])
-            temp4 = temp4.float()
+            if sync:
+                sync(temp, rhs_p, out)
+            for i in shards:
+                g = gas[i]
+                out[i], tn = sweep(temp[i], g.cls_a[axis], g.bc_vel,
+                                   g.bc_temp, rhs_p[i], pay(out[i]), scal,
+                                   axis, exact, gmerge and k == pairs - 1,
+                                   g.dual_flags[axis])
+                temp[i] = tn.float()
         n_left = num_local % 2
     for _ in range(n_left):
-        temp4, out4 = _stream_iteration(axis, rhs4, temp4, out4, ga, pa,
-                                        scal, exact, bf16)
-    return temp4, out4
+        if sync:
+            sync(temp)
+        for i in shards:
+            temp[i], out[i] = _stream_iteration(axis, rhs[i], temp[i],
+                                                out[i], gas[i], pa, scal,
+                                                exact, bf16)
+    return temp, out
 
 
-def _step_paths(ga: GridArrays3D, backend: str, num_local: int,
-               merge_ok: tuple) -> list:
-    """The path of each axis (0, 1, 2) for this grid."""
-    duals = tuple(c is not None for c in ga.cls_b)
-    rep = dispatch_report(tuple(ga.types.shape), duals, backend, num_local,
-                          merge_ok)
+def _step_paths(ga, backend: str, num_local: int, merge_ok: tuple,
+                plan=None) -> list:
+    """The path of each axis (0, 1, 2) for this grid (a GridArrays3D, or
+    under a plan its ShardedGrid)."""
+    if plan is None:
+        shape = tuple(ga.types.shape)
+        duals = tuple(c is not None for c in ga.cls_b)
+    else:
+        shape, duals = ga.shape, ga.duals
+    rep = dispatch_report(shape, duals, backend, num_local, merge_ok, plan)
     return [rep["dirs"][name] for _, name in _AXES]
 
 
@@ -335,57 +388,111 @@ def _no_section(name):
     return contextlib.nullcontext()
 
 
-def adi_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D, dt,
-                    num_global: int, num_local: int, pa: ParamsArgs3D,
-                    backend: str = "auto", exact: bool = True,
-                    compute_error: bool = True,
+def adi_timestep_3d(cur, nxt_prev, ga, dt, num_global: int, num_local: int,
+                    pa: ParamsArgs3D, backend: str = "auto",
+                    exact: bool = True, compute_error: bool = True,
                     merge_ok: tuple = (False, False, False),
-                    section=_no_section):
+                    section=_no_section, plan=None):
     """One reference TimeStep (AdiSolver3D.cpp:306-391).
 
     Returns (new_cur, err); ``err`` is a 0-d float32 tensor, or -1.0 when
     ``compute_error`` is False.  ``nxt_prev`` is the persistent next layer;
     only its BOUND/VALVE cells are re-seeded from ``cur``.  ``section(name)``
     gives a context for each part of the step, under the reference's event
-    names (``adi_timestep_3d_profiled``)."""
-    backend = resolve_backend(backend)
-    paths = _step_paths(ga, backend, num_local, merge_ok)
+    names (``adi_timestep_3d_profiled``).
+
+    ``plan`` (``parallel.mesh.ShardingPlan``) splits X over its shards:
+    ``cur`` and ``nxt_prev`` are then the plan's X slabs of the stacked
+    (4, nx, ny, nz) state, ``ga`` the grid's ``common3d.ShardedGrid``, and
+    the new state comes back as such slabs (their halos not filled).  The
+    Y and Z directions run on each slab, its halos filled from the
+    neighbours before each kernel call (``_solve_direction``); X reshards
+    the fields to Y slabs, runs on them and reshards back.  The halos
+    wrap at the grid's ends as the single device's stencils do, so every
+    owned cell reads what it reads on one device, and the new state
+    equals the single device's bit for bit.  The error sums
+    each shard's owned cells, then divides by the grid's count (the
+    reduction of the reference's EvalDivError, TimeLayer3D.h:595-641): it
+    equals the single device's up to the order of the sums.  The step
+    synchronizes each device of the plan once, at its end."""
+    backend = resolve_backend(backend, plan)
+    paths = _step_paths(ga, backend, num_local, merge_ok, plan)
     # the global MergeLayer folds into X's final pair (adi3d.py:1727-1745)
     gfold = paths[0] == "pair"
     scals = [_nl_scal(ax, pa, dt) for ax in range(3)]
-    types = ga.types
-    is_bv = (types == NodeType.BOUND) | (types == NodeType.VALVE)
-    is_in = types == NodeType.IN
+    if plan is None:
+        gas, sync = [ga], None
+    else:
+        gas = list(ga.x)
+
+        def sync(*fields, dim=-3):
+            for f in fields:
+                plan.exchange(f, dim)
+
+    is_bv = [(g.types == NodeType.BOUND) | (g.types == NodeType.VALVE)
+             for g in gas]
+    is_in = [g.types == NodeType.IN for g in gas]
     with section("CopyLayer"):
-        cur4 = torch.stack(tuple(cur))
-        nxt4 = torch.where(is_bv, cur4, torch.stack(tuple(nxt_prev)))
+        if plan is None:
+            cur4 = [torch.stack(tuple(cur))]
+            nxt4 = [torch.stack(tuple(nxt_prev))]
+        else:
+            cur4, nxt4 = list(cur), list(nxt_prev)
+        nxt4 = [torch.where(m, c, n) for m, c, n in zip(is_bv, cur4, nxt4)]
     temp4 = cur4
-    half4 = torch.zeros_like(cur4)
+    half4 = [torch.zeros_like(c) for c in cur4]
 
     def direction(axis, rhs4, temp4, out4, gmerge=False):
-        with section("SolveSegments_" + "XYZ"[axis]):
-            return _solve_direction(axis, paths[axis], rhs4, temp4, out4, ga,
-                                    pa, scals[axis], num_local, exact, gmerge,
-                                    backend)
+        return _solve_direction(axis, paths[axis], rhs4, temp4, out4, gas,
+                                pa, scals[axis], num_local, exact, gmerge,
+                                backend, sync)
+
+    def x_direction(rhs4, temp4, out4):
+        if plan is None:
+            return direction(0, rhs4, temp4, out4, gmerge=gfold)
+        # X lines cross the shards: reshard so that Y splits (cmcfs_tpu
+        # adi3d.py:604-628), and back
+        x_cuts = [t.shape[-3] - 2 for t in temp4]
+        ty, ry, oy = (plan.reshard(f, -3, -2, ga.y_cuts)
+                      for f in (temp4, rhs4, out4))
+        ty, oy = _solve_direction(
+            0, paths[0], ry, ty, oy, list(ga.y), pa, scals[0], num_local,
+            exact, gfold, backend, lambda *f: sync(*f, dim=-2))
+        return tuple(plan.reshard(f, -2, -3, x_cuts) for f in (ty, oy))
 
     # the bf16 backends' Z rhs, rounded once a step for the kernels
-    rhs_z = (cur4.bfloat16() if backend in BF16_BACKENDS
+    rhs_z = ([c.bfloat16() for c in cur4] if backend in BF16_BACKENDS
              and paths[2] != "fallback" else cur4)
     for _ in range(num_global):
-        temp4, nxt4 = direction(2, rhs_z, temp4, nxt4)
-        temp4, half4 = direction(1, nxt4, temp4, half4)
-        temp4, nxt4 = direction(0, half4, temp4, nxt4, gmerge=gfold)
+        with section("SolveSegments_Z"):
+            temp4, nxt4 = direction(2, rhs_z, temp4, nxt4)
+        with section("SolveSegments_Y"):
+            temp4, half4 = direction(1, nxt4, temp4, half4)
+        with section("SolveSegments_X"):
+            temp4, nxt4 = x_direction(half4, temp4, nxt4)
         with section("MergeLayer"):
             if not gfold:
-                temp4 = torch.where(is_in, (temp4 + nxt4) / 2.0, temp4)
-    nxt = State3D(*nxt4.float().unbind(0))
+                temp4 = [torch.where(m, (t + n) / 2.0, t)
+                         for m, t, n in zip(is_in, temp4, nxt4)]
+    nxt4 = [n.float() for n in nxt4]
     with section("EvalDivError"):
-        if compute_error:
-            err = stencil.div_error_3d(nxt.u, nxt.v, nxt.w, types,
+        if not compute_error:
+            err = torch.tensor(-1.0, dtype=torch.float32)
+        elif plan is None:
+            n4 = nxt4[0]
+            err = stencil.div_error_3d(n4[0], n4[1], n4[2], ga.types,
                                        pa.dx, pa.dy, pa.dz)
         else:
-            err = torch.tensor(-1.0, dtype=torch.float32)
-    return nxt, err
+            sync(nxt4)
+            dev = plan.devices[0]
+            sums = [stencil.div_error_sum_3d(n4[0], n4[1], n4[2], m, pa.dx,
+                                             pa.dy, pa.dz).to(dev)
+                    for n4, m in zip(nxt4, ga.err_mask)]
+            err = torch.stack(sums).sum() / max(ga.count, 1)
+    if plan is None:
+        return State3D(*nxt4[0].unbind(0)), err
+    plan.synchronize()
+    return nxt4, err
 
 
 def adi_timestep_3d_profiled(cur: State3D, nxt_prev: State3D,

@@ -72,26 +72,111 @@ def dual_flags(cls_a, cls_b, take_b):
             + 2 * take_b.to(torch.int8)).to(torch.int8)
 
 
-def _arrays(dev, types, bcv, bct, vals, classes) -> GridArrays3D:
-    """Assemble GridArrays3D from host arrays; ``dev`` moves one array."""
-    t_bcv, t_bct = dev(bcv), dev(bct)
-
-    def opt(a):
-        return None if a is None else dev(a)
-
-    cls_a = tuple(dev(a) for a, _, _ in classes)
-    cls_b = tuple(opt(b) for _, b, _ in classes)
-    take_b = tuple(None if tb is None else dev(np.asarray(tb, dtype=bool))
-                   for _, _, tb in classes)
+def _assemble(types, bcv, bct, vals, cls_a, cls_b, take_b) -> GridArrays3D:
+    """GridArrays3D of tensors on one device; an axis whose ``cls_a`` is
+    None has no entries (a shard's arrays for the X direction alone)."""
     return GridArrays3D(
-        types=dev(types), bc_vel=t_bcv, bc_temp=t_bct,
-        val_u=dev(vals[0]), val_v=dev(vals[1]), val_w=dev(vals[2]),
-        val_T=dev(vals[3]), cls_a=cls_a, cls_b=cls_b, take_b=take_b,
-        pk_a=tuple(pack_masks(c, t_bcv, t_bct) for c in cls_a),
-        pk_b=tuple(None if c is None else pack_masks(c, t_bcv, t_bct)
+        types=types, bc_vel=bcv, bc_temp=bct, val_u=vals[0], val_v=vals[1],
+        val_w=vals[2], val_T=vals[3], cls_a=cls_a, cls_b=cls_b,
+        take_b=take_b,
+        pk_a=tuple(None if c is None else pack_masks(c, bcv, bct)
+                   for c in cls_a),
+        pk_b=tuple(None if c is None else pack_masks(c, bcv, bct)
                    for c in cls_b),
         dual_flags=tuple(dual_flags(*abt)
                          for abt in zip(cls_a, cls_b, take_b)))
+
+
+def _arrays(dev, types, bcv, bct, vals, classes) -> GridArrays3D:
+    """Assemble GridArrays3D from host arrays; ``dev`` moves one array."""
+    def opt(a):
+        return None if a is None else dev(a)
+
+    return _assemble(
+        dev(types), dev(bcv), dev(bct), tuple(dev(v) for v in vals),
+        tuple(dev(a) for a, _, _ in classes),
+        tuple(opt(b) for _, b, _ in classes),
+        tuple(None if tb is None else dev(np.asarray(tb, dtype=bool))
+              for _, _, tb in classes))
+
+
+class ShardedGrid(NamedTuple):
+    """A grid's arrays split over a ``parallel.mesh.ShardingPlan``: ``x``
+    one X slab's GridArrays3D a shard (its planes and a halo plane at both
+    X ends), for the Y and Z directions and the step's elementwise work;
+    ``y`` the X direction's arrays as Y slabs (X entries only), cut into
+    ``y_cuts``; ``shape`` the shape the dispatch decides on (cmcfs_tpu's,
+    X padded to a multiple of the shards, ``AdiSolver3D.set_plan``);
+    ``duals`` per axis, the whole grid keeps a pass B; ``err_mask`` per
+    shard, the cells of the divergence metric it owns; ``count`` their
+    number over the grid."""
+    x: tuple
+    y: tuple
+    y_cuts: tuple
+    shape: tuple
+    duals: tuple
+    err_mask: tuple
+    count: int
+
+
+def shard_grid(types, bcv, bct, vals, plan, x_cuts, shape) -> ShardedGrid:
+    """The arrays of a grid (host arrays; ``vals`` the boundary values of
+    u, v, w and T) split over ``plan``, X into ``x_cuts``, Y into
+    near-equal runs.  The line classes, the dual pass and the merge masks
+    are built once on the whole grid, then sliced: X lines cross the
+    shards, so classes built per slab would be wrong, and every shard
+    keeps a pass B on an axis where the grid has one, with or without a
+    dual in its slab.  The packed masks and dual planes are built per
+    cell, so building them from the sliced classes equals slicing them.
+    ``shape``: the dispatch's."""
+    from ..parallel.mesh import even_cuts
+    t, bcv, bct = (np.asarray(a) for a in (types, bcv, bct))
+    classes = [(a, b, None if tb is None else np.asarray(tb, dtype=bool))
+               for a, b, tb in _line_classes(t, bcv, bct)]
+    y_cuts = even_cuts(t.shape[1], plan.n)
+
+    def parts(dim, cuts, axes):
+        def split(a):
+            return None if a is None else plan.split(a, dim, cuts)
+
+        ty, bv, bt = split(t), split(bcv), split(bct)
+        vs = [split(np.asarray(v, dtype=np.float32)) for v in vals]
+        ca, cb, tb = ([split(c[k]) if ax in axes and c[k] is not None
+                       else None for ax, c in enumerate(classes)]
+                      for k in range(3))
+
+        def pick(lists, i):
+            return tuple(None if p is None else p[i] for p in lists)
+
+        return tuple(_assemble(ty[i], bv[i], bt[i], pick(vs, i),
+                               pick(ca, i), pick(cb, i), pick(tb, i))
+                     for i in range(plan.n))
+
+    mask = t == NodeType.IN
+    mask[-1, :, :] = False
+    mask[:, -1, :] = False
+    mask[:, :, -1] = False
+    err_mask = plan.split(mask, 0, x_cuts)
+    for m in err_mask:
+        m[0] = False
+        m[-1] = False
+    return ShardedGrid(x=parts(0, x_cuts, (0, 1, 2)),
+                       y=parts(1, y_cuts, (0,)), y_cuts=tuple(y_cuts),
+                       shape=tuple(shape),
+                       duals=tuple(b is not None for _, b, _ in classes),
+                       err_mask=tuple(err_mask), count=int(mask.sum()))
+
+
+def update_slabs(slabs: list, sg: ShardedGrid) -> list:
+    """``update_boundaries`` of a state held as X slabs, each the stacked
+    (4, ...) fields of a shard."""
+    out = []
+    for x4, g in zip(slabs, sg.x):
+        m = (g.types == NodeType.BOUND) | (g.types == NodeType.VALVE)
+        out.append(torch.stack([
+            torch.where(m, v, f) for v, f in zip(
+                (g.val_u, g.val_v, g.val_w, g.val_T), x4)]))
+    return out
 
 
 def grid_arrays(grid: Grid3D, device) -> GridArrays3D:
@@ -134,12 +219,12 @@ def update_boundaries(state: State3D, ga: GridArrays3D) -> State3D:
     )
 
 
-def get_layer(state: State3D, ga: GridArrays3D, outdimx: int, outdimy: int,
+def get_layer(state: State3D, types: torch.Tensor, outdimx: int, outdimy: int,
               outdimz: int):
-    """Clear OUT cells to MISSING_VALUE + nearest downsample
-    (Solver3D.cpp:21-25 + FilterToArrays, TimeLayer3D.h:819-924).  Returns
-    numpy arrays on the host."""
-    out = ga.types.cpu().numpy() == NodeType.OUT
+    """Clear OUT cells (``types``: the grid's) to MISSING_VALUE + nearest
+    downsample (Solver3D.cpp:21-25 + FilterToArrays, TimeLayer3D.h:819-924).
+    Returns numpy arrays on the host."""
+    out = types.cpu().numpy() == NodeType.OUT
     arrs = []
     for f in state:
         a = f.detach().cpu().numpy().copy()

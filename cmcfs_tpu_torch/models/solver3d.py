@@ -6,12 +6,16 @@ models/stable3d.py), and so does the port.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from ..core.params import FluidParams
+from ..core.types import NodeType
 from ..device import get_device
 from ..geom.grid3d import Grid3D
 from . import adi3d, explicit3d, stable3d
-from .common3d import (get_layer, grid_arrays, init_state, merge_ok,
-                       update_boundaries)
+from .common3d import (State3D, get_layer, grid_arrays, init_state,
+                       merge_ok, shard_grid, update_boundaries, update_slabs)
 
 
 class SolverError(RuntimeError):
@@ -36,26 +40,102 @@ class AdiSolver3D:
         self.cur = init_state(grid, self.device)
         self.next = self.cur
         self.pa = adi3d.make_params(params, grid.dx, grid.dy, grid.dz)
+        self.plan = None
+
+    def set_plan(self, plan, nblockz: int = 0,
+                 balance: str | None = None) -> None:
+        """Split X over ``plan``'s shards (``parallel.mesh.ShardingPlan``,
+        the GPUplan analogue; ref solver3d.py:61-110): the state and the
+        grid's arrays become X slabs, one a shard.  The cuts are
+        cmcfs_tpu's: it pads X to a multiple of the shard count with inert
+        OUT planes and splits evenly, the planes at the end, or with
+        ``balance`` (EVEN_X, EVEN_SEGMENTS, EVEN_VOLUME: the reference's
+        SplitSegments_X, Grid3D.cpp:148-235) where
+        ``parallel.balance.plan_padding`` puts them so that the even cuts
+        carry near-equal work.  ``padded_types`` keeps that layout; the
+        port cuts there without storing the padding planes, since a plane
+        added at the grid's end changes what its last plane reads, and
+        its X lines' classes, where that plane holds IN cells."""
+        if nblockz > 1:
+            raise SolverError("blocking: the Z-blocked wavefront X sweep "
+                              "is not ported yet (ROADMAP A8 part 2)")
+        cur, nxt = self.state()
+        g = self.grid
+        dimx = g.dimx
+        if balance:
+            from ..parallel import balance as bal
+            ins = bal.plan_padding(np.asarray(g.types), plan.n,
+                                   policy=balance)
+        else:
+            ins = [dimx] * ((-dimx) % plan.n)
+        self.padded_types = np.insert(np.asarray(g.types), ins,
+                                      NodeType.OUT, axis=0)
+        # shard i owns padded planes [i*s, (i+1)*s): the grid's planes
+        # among them, the -1 entries the padding
+        planes = np.insert(np.arange(dimx), ins, -1).reshape(plan.n, -1)
+        cuts = [int((p >= 0).sum()) for p in planes]
+        if min(cuts) < 1:
+            raise SolverError(f"{dimx} X planes are too few for {plan.n} "
+                              f"shards (cuts {cuts})")
+        self.x_cuts = cuts
+        self.ga = shard_grid(
+            g.types, g.bc_vel, g.bc_temp,
+            (g.vel[..., 0], g.vel[..., 1], g.vel[..., 2], g.T), plan, cuts,
+            shape=self.padded_types.shape)
+        self.plan = plan
+        self.device = plan.devices[0]
+        self.set_state(cur, nxt)
+
+    def state(self):
+        """(cur, next) as State3D of the whole grid, under a plan gathered
+        from the shards onto the first one's device."""
+        if self.plan is None:
+            return self.cur, self.next
+        return tuple(State3D(*self.plan.gather(slabs, -3).unbind(0))
+                     for slabs in (self.cur, self.next))
+
+    def set_state(self, cur, nxt) -> None:
+        """Take (cur, next) of the whole grid (tensors or host arrays), as
+        a resumed checkpoint gives them; under a plan split over it."""
+        def dev(f):
+            return torch.as_tensor(f, dtype=torch.float32,
+                                   device=self.device)
+
+        if self.plan is None:
+            self.cur = State3D(*(dev(f) for f in cur))
+            self.next = State3D(*(dev(f) for f in nxt))
+        else:
+            self.cur, self.next = (
+                self.plan.split(torch.stack([dev(f) for f in st]), -3,
+                                self.x_cuts) for st in (cur, nxt))
 
     def dispatch_report(self, num_local: int) -> dict:
         """Which implementation each direction runs (the reference's
         OutputSegmentsInfo analogue, AdiSolver3D.cpp:270-284)."""
-        return adi3d.dispatch_report(
-            tuple(self.ga.types.shape),
-            tuple(c is not None for c in self.ga.cls_b), self.backend,
-            num_local, self.merge_ok)
+        if self.plan is None:
+            shape = tuple(self.ga.types.shape)
+            duals = tuple(c is not None for c in self.ga.cls_b)
+        else:
+            shape, duals = self.ga.shape, self.ga.duals
+        return adi3d.dispatch_report(shape, duals, self.backend, num_local,
+                                     self.merge_ok, self.plan)
 
     def update_boundaries(self) -> None:
         # the reference also re-seeds next's BOUND/VALVE cells
         # (Solver3D.cpp:28-34)
-        self.cur = update_boundaries(self.cur, self.ga)
-        self.next = update_boundaries(self.next, self.ga)
+        if self.plan is None:
+            self.cur = update_boundaries(self.cur, self.ga)
+            self.next = update_boundaries(self.next, self.ga)
+        else:
+            self.cur = update_slabs(self.cur, self.ga)
+            self.next = update_slabs(self.next, self.ga)
 
     def _step(self, dt, num_global, num_local, compute_error):
         return adi3d.adi_timestep_3d(
             self.cur, self.next, self.ga, dt, num_global, num_local, self.pa,
             backend=self.backend, exact=self.exact,
-            compute_error=compute_error, merge_ok=self.merge_ok)
+            compute_error=compute_error, merge_ok=self.merge_ok,
+            plan=self.plan)
 
     def time_step(self, dt: float, num_global: int, num_local: int,
                   compute_error: bool = True) -> None:
@@ -73,7 +153,10 @@ class AdiSolver3D:
         """One step with each part timed into ``prof`` under the
         reference's event names (adi3d.adi_timestep_3d_profiled; ref
         solver3d.py:170-187): the same kernels and result as
-        ``time_step``."""
+        ``time_step``.  One device only, as in cmcfs_tpu."""
+        if self.plan is not None:
+            raise SolverError("profiled mode is single-device (run without "
+                              "shards)")
         nxt, err = adi3d.adi_timestep_3d_profiled(
             self.cur, self.next, self.ga, dt, num_global, num_local, self.pa,
             prof, backend=self.backend, exact=self.exact,
@@ -88,7 +171,9 @@ class AdiSolver3D:
         """The ``next`` layer, which after the swap holds the PRE-step state:
         the reference's GetLayer off-by-one, kept (PARITY.md:16-17).  The
         MISSING_VALUE clear applies only to the returned host copy."""
-        return get_layer(self.next, self.ga, outdimx, outdimy, outdimz)
+        types = (self.ga.types if self.plan is None
+                 else torch.as_tensor(self.grid.types))
+        return get_layer(self.state()[1], types, outdimx, outdimy, outdimz)
 
 
 def _whole_step_profiled(self, dt: float, num_global: int, num_local: int,
@@ -101,11 +186,19 @@ def _whole_step_profiled(self, dt: float, num_global: int, num_local: int,
         self.time_step(dt, num_global, num_local)
 
 
+def _no_plan(self, plan, nblockz: int = 0, balance: str | None = None):
+    """The Explicit and Stable schemes run on one device: cmcfs_tpu runs
+    them sharded through GSPMD, which the port has not ported yet."""
+    raise SolverError(f"{self.name} split over devices is not ported yet "
+                      "(ROADMAP A8 part 4)")
+
+
 class ExplicitSolver3D(AdiSolver3D):
     """The ADI solver's lifecycle, error gate and swap with the explicit
     step (ref solver3d.py:221-251)."""
     name = "Explicit"
     time_step_profiled = _whole_step_profiled
+    set_plan = _no_plan
 
     def _step(self, dt, num_global, num_local, compute_error):
         return explicit3d.explicit_timestep_3d(
@@ -118,6 +211,7 @@ class StableSolver3D(AdiSolver3D):
     solver3d.py:221-251)."""
     name = "Stable"
     time_step_profiled = _whole_step_profiled
+    set_plan = _no_plan
     last_poisson_iters = ()
 
     def _step(self, dt, num_global, num_local, compute_error):

@@ -97,10 +97,9 @@ def diss_z_3d(u, v, w, dx, dy, dz):
     return uz * uz + vz * vz + 2 * wz * wz + uz * wx + vz * wy
 
 
-def div_error_3d(u, v, w, types, dx, dy, dz) -> torch.Tensor:
-    """Staggered-corner divergence metric (TimeLayer3D.h:595-641): mean
-    over NODE_IN cells off the high borders of |corner-averaged flux
-    divergence|.  Returns a 0-d float32 tensor on the fields' device."""
+def _div_terms_3d(u, v, w, dx, dy, dz) -> torch.Tensor:
+    """|corner-averaged flux divergence| of every cell (TimeLayer3D.h:
+    595-641), before the mask."""
     # f(i,j,k) + f(.., -1 along a) + f(-1 along a and b) + f(-1 along b),
     # summed in cmcfs_tpu's term order (corner_sum_x/_y/_z)
     fm_j = shift(u, -1, 1)
@@ -113,11 +112,23 @@ def div_error_3d(u, v, w, types, dx, dy, dz) -> torch.Tensor:
     err_x = (su - shift(su, -1, 0)) * (_F(dz) * _F(dy) / q)
     err_y = (sv - shift(sv, -1, 1)) * (_F(dx) * _F(dz) / q)
     err_z = (sw - shift(sw, -1, 2)) * (_F(dx) * _F(dy) / q)
+    return torch.abs(err_x + err_y + err_z)
 
+
+def div_error_3d(u, v, w, types, dx, dy, dz) -> torch.Tensor:
+    """Staggered-corner divergence metric (TimeLayer3D.h:595-641): mean
+    over NODE_IN cells off the high borders of |corner-averaged flux
+    divergence|.  Returns a 0-d float32 tensor on the fields' device."""
     mask = types == NodeType.IN
     mask[-1, :, :] = False
     mask[:, -1, :] = False
     mask[:, :, -1] = False
-    err = torch.where(mask, torch.abs(err_x + err_y + err_z), 0.0)
+    err = torch.where(mask, _div_terms_3d(u, v, w, dx, dy, dz), 0.0)
     count = int(mask.sum())
     return err.sum() / max(count, 1)
+
+
+def div_error_sum_3d(u, v, w, mask, dx, dy, dz) -> torch.Tensor:
+    """The sum of ``div_error_3d``'s terms over ``mask``: one X slab's share
+    of the metric, its halo planes filled (a 0-d tensor)."""
+    return torch.where(mask, _div_terms_3d(u, v, w, dx, dy, dz), 0.0).sum()

@@ -1,18 +1,22 @@
 """Where a 3D ADI step's device time goes, by kernel, on one GPU.
 
     python -m cmcfs_tpu_torch.profile3d [--dx 0.00409] [--num-local 2]
-        [--backend auto] [--steps 3] [--inexact] [--baffle N]
+        [--backend auto] [--steps 3] [--inexact] [--baffle N] [--shards N]
+        [--cards]
 
 Builds the extruded bench box (``scripts/gen_box_case.gen``; dx 0.00409
 is 256^3, 0.0027267 is ``bench --case 3d384``'s 383^3) with num_global=4,
 or with ``--baffle N`` the N^3 lid cavity with the FREE baffle
 (``geom.baffle``: X on the pair kernel's dual form; normalized parameters
 Re 200, Pr 0.72, lambda 1.4, dt 0.01, as ``chip_smoke.py`` runs it),
-runs one warm-up step, then profiles ``--steps`` steps with
-``torch.profiler`` and prints: the dispatch, ms/step (host clock, device
-synchronised), the device time of each kernel (total, launches, share),
-and the device's busy share of the profiled window (the union of kernel
-intervals over the span from the first to the last recorded event).
+with ``--shards N`` split over X into N shards on the one card (the
+MGPU_EMU analogue, ``devices=["cuda:0"] * N``; with ``--cards``, over the
+first N cards), runs one warm-up step,
+then profiles ``--steps`` steps with ``torch.profiler`` and prints: the
+dispatch, ms/step (host clock, device synchronised), the device time of
+each kernel (total, launches, share), and the device's busy share of the
+profiled window (the union of kernel intervals over the span from the
+first to the last recorded event).
 Needs a CUDA device; it never runs on the CPU.
 """
 from __future__ import annotations
@@ -30,11 +34,13 @@ from .models.solver3d import AdiSolver3D
 
 
 def _kernel_events(prof):
-    """(name, start_us, end_us) of every device kernel the profiler saw."""
+    """(name, start_us, end_us, device) of every device kernel the profiler
+    saw."""
     out = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            out.append((e.name, e.time_range.start, e.time_range.end))
+            out.append((e.name, e.time_range.start, e.time_range.end,
+                        e.device_index))
     return out
 
 
@@ -63,6 +69,10 @@ def main(argv=None) -> int:
                     help="reciprocal Thomas (exact=False)")
     ap.add_argument("--baffle", type=int, default=0,
                     help="the N^3 lid cavity with the FREE baffle")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="split X into N shards on cuda:0")
+    ap.add_argument("--cards", action="store_true",
+                    help="put the shards on cuda:0..N-1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile3d needs a CUDA device", file=sys.stderr)
@@ -86,12 +96,17 @@ def main(argv=None) -> int:
         cfg, params, grid = cli3d.load_case(data, cfgp)
         solver.init(grid, params)
         dt = grid.cycle_len / (grid.num_frames * cfg.time_steps)
+    if args.shards > 1:
+        from .parallel.mesh import make_x_mesh
+        solver.set_plan(make_x_mesh(args.shards) if args.cards else
+                        make_x_mesh(devices=["cuda:0"] * args.shards))
     rep = solver.dispatch_report(num_local)
+    ga = solver.ga if solver.plan is None else solver.ga.x[0]
     print(f"grid {grid.dimx}x{grid.dimy}x{grid.dimz}, ng={num_global} "
           f"nl={num_local}, exact={solver.exact}; dispatch: "
           f"backend={rep['backend']} pad={rep['pad']} pcr={rep['pcr']} "
           f"bf16={rep['bf16']} dirs={rep['dirs']}; dual planes "
-          f"{[f is not None for f in solver.ga.dual_flags]}")
+          f"{[f is not None for f in ga.dual_flags]}; shards {args.shards}")
 
     def step():
         solver.update_boundaries()
@@ -128,7 +143,7 @@ def profile_steps(step, steps: int) -> int:
         print("the profiler recorded no device kernels", file=sys.stderr)
         return 1
     by_name: dict[str, list] = {}
-    for name, s, e in kernels:
+    for name, s, e, _ in kernels:
         ent = by_name.setdefault(name, [0, 0.0])
         ent[0] += 1
         ent[1] += e - s
@@ -139,10 +154,16 @@ def profile_steps(step, steps: int) -> int:
                if any(k + c in name for k in PORT_KERNELS for c in "(<"))
     span = (max(e.time_range.end for e in prof.events())
             - min(e.time_range.start for e in prof.events()))
-    busy = _busy_us([(s, e) for _, s, e in kernels])
+    busy = _busy_us([(s, e) for _, s, e, _ in kernels])
     print(f"device kernel time {total / 1e3:.2f} ms; busy {busy / 1e3:.2f} "
           f"of {span / 1e3:.2f} ms profiled ({100 * busy / span:.1f} %); "
           f"the port's kernels {100 * ours / total:.1f} % of kernel time")
+    devices = sorted({d for *_, d in kernels})
+    if len(devices) > 1:
+        per = {d: _busy_us([(s, e) for _, s, e, k in kernels if k == d])
+               for d in devices}
+        print("busy by device: " + "; ".join(
+            f"cuda:{d} {t / 1e3:.2f} ms" for d, t in per.items()))
     print(f"{'ms':>10}{'launches':>10}{'share':>8}  kernel")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"{t / 1e3:>10.3f}{n:>10}{100 * t / total:>7.1f}%  {name[:90]}")

@@ -48,7 +48,7 @@ HOST_COPIES = ["core/types.py", "core/config.py", "core/params.py",
                "geom/grid3d.py", "geom/synthetic.py", "ops/masks.py",
                "io/netcdf3.py",
                "io/writers.py", "io/project.py", "io/image.py",
-               "utils/timer.py"]
+               "utils/timer.py", "parallel/balance.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
@@ -111,13 +111,40 @@ def test_cuda_device_raises_without_cuda():
 
 @pytest.mark.parametrize("flag", ["GPU", "shards", "blocking", "orbax",
                                   "hosts", "balance", "rank", "coordinator"])
-def test_cli_refuses_unported_flag(flag, capsys):
-    """The multi-GPU flags and the orbax tier wait for ROADMAP A8."""
-    argv = ["data.txt", "out", "config.txt", flag]
-    if flag in ("shards", "hosts", "balance", "rank", "coordinator"):
-        argv.append("2")
-    assert cli3d.main(argv) == 2
-    assert "ROADMAP A8" in capsys.readouterr().err
+def test_cli_refuses_unported_flag(flag, capsys, tmp_path):
+    """The wavefront X sweep, multi-host runs and the orbax tier wait for
+    ROADMAP A8 parts 2 and 3.  ``GPU n``, ``shards n`` and ``balance``
+    used to be refused too (A8 part 1); each now runs one CPU step of a
+    tiny box case (16^3) split over 2 CPU shards (``balance EVEN_VOLUME``
+    over 3, whose padding plane it places) and writes the unsharded run's
+    NetCDF file byte for byte."""
+    if flag not in ("GPU", "shards", "balance"):
+        argv = ["data.txt", "out", "config.txt", flag]
+        if flag in ("hosts", "rank", "coordinator"):
+            argv.append("2")
+        assert cli3d.main(argv) == 2
+        err = capsys.readouterr().err
+        assert "ROADMAP A8 part " + ("2" if flag == "blocking" else "3") \
+            in err
+        return
+    from scripts.gen_box_case import gen
+    data, cfgp = gen(str(tmp_path / "case"), dx=0.07, time_steps=2,
+                     num_global=1, num_local=2)
+    with open(cfgp) as f:
+        text = f.read()
+    with open(cfgp, "w") as f:
+        f.write(text.replace("out_time_steps \t1000000",
+                             "out_time_steps \t1"))
+    split = {"GPU": ["GPU", "2"], "shards": ["shards", "2"],
+             "balance": ["shards", "3", "balance", "EVEN_VOLUME"]}[flag]
+    outs = []
+    for name, extra in (("one", []), ("split", split)):
+        base = str(tmp_path / name)
+        assert cli3d.main([data, base, cfgp, "quiet"] + extra,
+                          device="cpu") == 0
+        with open(base + "_res.nc", "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("flag", ["checkpoint", "resume", "carried", "profile",

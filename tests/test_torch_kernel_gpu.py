@@ -26,7 +26,11 @@ no instantiation spills).  The bf16 payload mode of every kernel
 float32 in between) is held to its plain version bit for bit on the same
 edges, with its launches counted apart (``bf16_launches``), and with its
 bf16 inputs starting on either half of a 4-byte word
-(``test_bf16_loader_offsets*``: the staged loader's run offsets).
+(``test_bf16_loader_offsets*``: the staged loader's run offsets).  The
+row path's step equals the CPU's bit for bit
+(``test_row_step_card_equals_cpu``), and the step split over X equals
+the single card's bit for bit, over shards emulated on one card and over
+real cards where two or more are visible (``test_sharded_step_*``).
 """
 import numpy as np
 import pytest
@@ -1191,3 +1195,110 @@ def test_step_2d_bf16_kernels_match_plain(exact, monkeypatch):
     want = steps()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+
+def _row_step(dim, device, exact):
+    """One ``scan`` step of the row path on ``device``: the 3D lid cavity
+    of ``_case`` or the 2D lid cavity at 48 x 40, both with interior noise
+    on normalized parameters; (fields on the host, err)."""
+    if dim == 3:
+        ga, pa, temp4, _, nxt4 = _case(device, seed=5)
+        new, err = adi3d.adi_timestep_3d(tuple(temp4), tuple(nxt4), ga, 0.01,
+                                         2, 2, pa, backend="scan",
+                                         exact=exact, merge_ok=merge_ok(ga))
+    else:
+        g = lid_cavity_2d(48, 40, dx=0.01)
+        ga = common2d.grid_arrays(g, device)
+        pa = adi2d.make_params(FluidParams.normalized(200.0, 0.72, 1.4),
+                               g.dx, g.dy, 1.0)
+        cur = common2d.update_boundaries(common2d.init_state(g, device), ga)
+        rng = np.random.default_rng(5)
+        is_in = ga.types == NodeType.IN
+        cur = common2d.State2D(*(torch.where(is_in, f + 0.1 * torch.tensor(
+            rng.standard_normal(tuple(f.shape)), dtype=torch.float32,
+            device=device), f) for f in cur))
+        new, err, _ = adi2d.adi_timestep_2d(cur, ga, 0.001, 2, 2, pa,
+                                            backend="scan", exact=exact)
+    return torch.stack(tuple(new)).cpu(), float(err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("dim", [3, 2])
+def test_row_step_card_equals_cpu(dim, exact):
+    """The row path (``scan``: materialized rows, the tridiag_rows kernel
+    on the card, its plain version on the CPU) gives the CPU's step bit for
+    bit: the rows' advection term adv/(2h) is a correctly rounded quotient
+    on both devices (``stencil.over``), as cmcfs_tpu's rows divide."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (x_c, e_c), (x_g, e_g) = (_row_step(dim, d, exact)
+                              for d in ("cpu", "cuda"))
+    gap = [float((g - c).abs().max()) for g, c in zip(x_g, x_c)]
+    assert torch.equal(x_g, x_c), f"max|card - cpu| per variable {gap}"
+    assert abs(e_g - e_c) <= 1e-6 * abs(e_c)
+
+
+def _split_runs(backend, baffle, plan):
+    """Three steps of the 25 x 20 x 18 lid cavity (with the FREE baffle)
+    on cuda:0 and over ``plan``: each run's (states on the host, errors,
+    pair launches, dual pair launches included)."""
+    from cmcfs_tpu_torch.models.solver3d import AdiSolver3D
+    grid = lid_cavity_3d(25, 20, 18)
+    if baffle:
+        grid = _baffle(grid)
+    runs = []
+    for p in (None, plan):
+        s = AdiSolver3D(backend=backend, device="cuda")
+        s.init(grid, FluidParams.normalized(200.0, 0.72, 1.4))
+        if p is not None:
+            s.set_plan(p)
+        before = ps.launches.count + ps.dual_launches.count
+        states, errs = [], []
+        for _ in range(3):
+            s.update_boundaries()
+            s.time_step(0.01, 2, 2)
+            states.append(torch.stack(tuple(s.state()[0])).cpu())
+            errs.append(s.last_err)
+        torch.cuda.synchronize()
+        runs.append((states, errs,
+                     ps.launches.count + ps.dual_launches.count - before))
+    (s1, e1, n1), (sn, en, nn) = runs
+    for a, b in zip(s1, sn):
+        assert torch.equal(a, b)
+    for a, b in zip(e1, en):
+        assert abs(a - b) <= 1e-6 * abs(a)
+    assert nn == plan.n * n1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 3])
+@pytest.mark.parametrize("backend, baffle", [("fused_nl", False),
+                                             ("fused_dma", False),
+                                             ("fused_nl", True)])
+def test_sharded_step_bitwise(backend, baffle, shards):
+    """Three steps split over X into ``shards`` shards on one card (the
+    MGPU_EMU analogue: ``["cuda:0"] * shards``) give the unsharded steps'
+    states bit for bit: the pair kernel on every direction (X resharded
+    to Y slabs), the line sweep (``fused_dma``), and the dual pair kernel
+    on the baffle's X lines; the pair kernel launches ``shards`` times as
+    often, and the error agrees within 1e-6 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+    _split_runs(backend, baffle, make_x_mesh(devices=["cuda:0"] * shards))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend, baffle", [("fused_nl", False),
+                                             ("fused_dma", False),
+                                             ("fused_nl", True)])
+def test_sharded_step_across_cards(backend, baffle):
+    """The same over 2 up to 4 real cards (``make_x_mesh(n)``: halos and
+    reshards copied between cards): bit for bit the single card's."""
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < 2:
+        pytest.skip(f"needs two or more CUDA devices, {n_cards} visible")
+    from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+    for n in range(2, min(n_cards, 4) + 1):
+        _split_runs(backend, baffle, make_x_mesh(n))
