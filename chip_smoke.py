@@ -138,10 +138,32 @@ and nvcc.  Phases, each of which raises on failure:
    nl=3 step over 2 (X on the fallback under a split, as cmcfs_tpu
    dispatches it) within TOL of phase 7's; ``cli3d.main([..., "shards",
    "2"])``, which refuses naming the visible count on one card and is
-   held bit for bit on two; under a minute.
+   held bit for bit on two; under a minute;
+24. the Z-blocked wavefront X sweep (``blocking nBlockZ``) on shards
+   emulated on the one card: the carry kernels (``tridiag_carry.cu``)
+   against their plain versions bit for bit at a 2-shard slab of the
+   256^3 box (k = 3 and 1, both ``exact`` modes, the first, a middle and
+   the last shard), timed as one block's X solve of the 4 variables;
+   ``scan`` at ng=4 nl=2, 2 steps over 2 and 4 shards with nblockz 8, bit
+   for bit the unblocked split in both modes (the carry kernels' launch
+   count checked); ``auto`` at nl=3 over 2 shards with blocking 8 (X on
+   the wavefront, Y/Z pair+stream) within TOL of the unblocked split,
+   and its X direction alone (a bf16 out layer in, exact) bit for bit
+   the single device's ``scan`` X direction;
+   ``auto`` at nl=2 with blocking 8 (X stays ``pair``) bit for bit phase
+   5's first step; 383^3 ``fused_dma`` over 2 shards with blocking 8, one
+   step within TOL of phase 8's, timed beside the unblocked split's;
+   ms/step at nb = 1 (the reshard), 4, 8, 16 in both modes for the
+   ``scan`` and the nl=3 runs;
+25. the Explicit and Stable schemes split over X on the one card: the
+   64^3 lid cavity, 3 Explicit steps and one Stable step over 2 and 4
+   shards, bit for bit the unsharded steps with equal Poisson counts;
+   the 256^3 cavity at ng=2, 3 Explicit steps (ms a step) and one Stable
+   step (its time and Poisson counts) over 2 shards, bit for bit phase
+   19's.
 
-Phases 19-23 print their seconds.  Every kernel's launch counter is set to 0 just before a path is driven
-and read just after; launches made to compare a kernel with its plain
+Phases 19-25 print their seconds.  Every kernel's launch counter is set
+to 0 just before a path is driven and read just after; launches made to compare a kernel with its plain
 version do not count.  The last lines are a JSON record of the kernels,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": ...}``.  It exits non-zero without a result when CUDA is absent
@@ -283,6 +305,16 @@ KERNELS = {
     "tridiag_rows": (
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
         12 + 3 * 8, 4 + 3 * 5),
+    # the wavefront's carry passes, one block's X solve of the 4 variables
+    # (forward and backward at k = 3 and k = 1), timed at a 2-shard slab
+    # of the 256^3 box: forward k=3 reads a, b, c, 3 d (24) and writes c',
+    # 3 d' (16), backward k=3 reads c', 3 d' (16) and writes 3 x (12);
+    # k=1 16 / 8 and 8 / 4; 3 + 3 operations a row for c' and each d' of
+    # the forward pass, 2 for each x
+    "tridiag_carry": (
+        CSRC + "tridiag_carry.cu",
+        "cmcfs_tpu/parallel/pipeline.py:26,45 (lax.scan, no pallas_call)",
+        104, (3 + 3 * 3 + 2 * 3) + (3 + 3 + 2)),
     # per (cell, variable): a, b, c, d in, x out; the 2D box's 3 variables
     "tridiag_rows_2d": (
         CSRC + "tridiag_rows.cu", "cmcfs_tpu/ops/pallas_tridiag.py:93",
@@ -336,11 +368,12 @@ KERNELS = {
 # hits, left out); line_sweep.cu: 85 in 3D, 69 in 2D (the scratch's six or
 # five planes written and read); tridiag_rows.cu: 20 + 16 k, 68 for the
 # velocity launch (k = 3), 36 a variable in 2D (k = 1); the dual pair 198
-# a launch; pcr_sweep.cu 99 a launch
+# a launch; pcr_sweep.cu 99 a launch; tridiag_carry.cu the compulsory 104
+# (no scratch: c' and d' are its outputs)
 MOVED = {"pair_sweep": 2 * 148, "stream_sweep": 152, "stream_sweep_2d": 120,
          "line_sweep": 85, "line_sweep_2d": 69, "tridiag_rows": 68,
          "tridiag_rows_2d": 36, "pair_sweep_dual": 2 * 198,
-         "pcr_sweep": 2 * 99}
+         "pcr_sweep": 2 * 99, "tridiag_carry": 104}
 # the probes: (source, the TPU probe it replaces, the variant whose
 # numbers the record carries: each script's first); their bytes and
 # operations come from each variant's row (cmcfs_tpu_torch/probes)
@@ -361,6 +394,9 @@ PROBE_REPS = 3
 # phase 18's bf16 drift: steps of fused_bf16 beside fused_nl from the start
 DRIFT_STEPS = 100
 DRIFT_AT = (10, 50, 100)
+# phase 24: the wavefront's nBlockZ, and the block counts it times
+NBLOCKZ = 8
+NB_TIMED = (1, 4, 8, 16)
 
 
 def fail(msg: str) -> None:
@@ -573,6 +609,7 @@ def main() -> int:
     from cmcfs_tpu_torch.ops import pair_sweep as ps
     from cmcfs_tpu_torch.ops import pcr_sweep as pcs
     from cmcfs_tpu_torch.ops import stream_sweep as ss
+    from cmcfs_tpu_torch.ops import tridiag_carry as tc
     from cmcfs_tpu_torch.ops import tridiag_rows as tr
     from cmcfs_tpu_torch.ops.stencil import div_error_3d
 
@@ -589,7 +626,8 @@ def main() -> int:
                         pair_sweep_dual_bf16=apart(ps.dual_bf16_launches),
                         pcr_sweep_bf16=apart(pcs.bf16_launches),
                         stream_sweep_bf16=apart(ss.bf16_launches),
-                        line_sweep_bf16=apart(ls.bf16_launches))
+                        line_sweep_bf16=apart(ls.bf16_launches),
+                        tridiag_carry=tc)
     rec = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
                "launches": 0, "max_abs_err": 0.0, "ms": None,
                "plain_ms": None, "bound_ms": None, "bound_by": None,
@@ -1930,12 +1968,16 @@ def main() -> int:
                  f"{solver.last_err}")
         return ms, iters
 
-    def scheme_3d(scheme, n, steps, device):
+    def scheme_3d(scheme, n, steps, device, shards=1):
         grid = lid_cavity_3d(n, n, n, dx=1.0 / n, lid_velocity=0.2)
         solver = make_solver_3d(scheme, device=device)
         solver.init(grid, params_s)
+        if shards > 1:
+            from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+            solver.set_plan(make_x_mesh(devices=[device] * shards))
         ms, iters = run_scheme(solver, SCHEME_DT, steps, SCHEME_NG)
-        print(f"{scheme} {n}^3 on {solver.device}: ms a step {ms}; "
+        print(f"{scheme} {n}^3 on {solver.device} over {shards} shard(s): "
+              f"ms a step {ms}; "
               f"divergence error {solver.last_err:.6e}; Poisson iterations "
               f"a global iteration {iters} ({smi})", flush=True)
         return solver, ms, iters
@@ -1966,9 +2008,13 @@ def main() -> int:
         if n_over:
             fail(f"stencil.over by {s!r} parts from the CPU's quotient")
     del xg, xd
+    # each scheme's last 256^3 state, error and Poisson counts, which
+    # phase 25's split steps are held to
+    p19 = {}
     for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
         sv, ms, iters = scheme_3d(scheme, SCHEME_N, steps, dev)
         timing[f"{SCHEME_N} {scheme} ng={SCHEME_NG}"] = {True: ms[-1]}
+        p19[scheme] = (torch.stack(tuple(sv.cur)).cpu(), sv.last_err, iters)
         del sv
     torch.cuda.empty_cache()
     for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
@@ -2318,6 +2364,312 @@ def main() -> int:
     if t23 > 60:
         fail(f"phase 23 took {t23:.1f} s, over its minute")
 
+    # --------------------------------------------- 24. the wavefront
+    t_phase = time.perf_counter()
+    phase(f"24. the Z-blocked wavefront X sweep (blocking {NBLOCKZ}) on one "
+          f"card: the carry kernels vs plain at a 2-shard slab of the 256^3 "
+          f"box; scan over 2 and 4 shards, auto at nl=3 and nl=2 over 2, "
+          f"383^3 fused_dma over 2")
+    from cmcfs_tpu_torch.parallel.pipeline import _largest_divisor_leq
+    # (a) the carry kernels at the wavefront's launch shape: a shard's 128
+    # X planes of the 256^3 box's rows, one block of 256 / NBLOCKZ columns
+    ga = grid_arrays(grid, dev)
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 24)
+    temp4, rhs4, _ = noisy_state(ga, grid, gen_t)
+    scal = adi3d._nl_scal(0, pa, dt)
+    d4 = adi3d.fold_d(*adi3d.fallback_rhs(0, rhs4, temp4, ga, pa, scal[2]),
+                      ga.cls_a[0])
+    rows = {vi: adi3d.row_coeffs(0, temp4[0], ga.cls_a[0], ga, pa, scal, vi)
+            for vi in (0, 3)}
+    del temp4, rhs4
+    half = grid.dimx // 2
+    blk = grid.dimz // _largest_divisor_leq(grid.dimz, NBLOCKZ)
+    z0 = 3 * blk
+    lines = grid.dimy * blk
+    cells = half * lines
+
+    def carry_case(start, k, first, last):
+        """(a, b, c, d, cin_c, cin_d, xin) of the planes from ``start``:
+        zero carries into the first shard's forward pass and the last
+        shard's backward pass, random ones elsewhere."""
+        sl = slice(start, start + half)
+        a, b, c = (m[sl] for m in rows[0 if k == 3 else 3])
+        d = d4[:3, sl] if k == 3 else d4[3:, sl]
+
+        def carry(shape, zero):
+            if zero:
+                return torch.zeros(shape, device=dev)
+            return torch.randn(shape, generator=gen_t, device=dev)
+
+        return (a, b, c, d, carry((grid.dimy, blk), first),
+                carry((k, grid.dimy, blk), first),
+                carry((k, grid.dimy, blk), last))
+
+    def carry_run(case, exact, last, kernel=True):
+        a, b, c, d, cc, cd, xin = case
+        fwd, bwd = ((tc.carry_fwd, tc.carry_bwd) if kernel
+                    else (tc.carry_fwd_ref, tc.carry_bwd_ref))
+        cp = torch.empty_like(a)
+        dp = torch.empty((d.shape[0],) + tuple(a.shape), device=dev)
+        x = torch.empty_like(dp)
+        oc, od = fwd(a, b, c, d, cc, cd, cp, dp, z0, last, exact)
+        ox = bwd(cp, dp, xin, x, z0)
+        cols = slice(z0, z0 + blk)
+        return (cp[..., cols], dp[..., cols], x[..., cols], oc, od, ox)
+
+    print(f"{'shard':<8}{'k':<3}{'exact':<7}{'max|delta|':>11}")
+    worst = 0.0
+    for which, start, first, last in (("first", 0, True, False),
+                                      ("middle", half // 2, False, False),
+                                      ("last", half, False, True)):
+        for k in (3, 1):
+            case = carry_case(start, k, first, last)
+            for exact in (True, False):
+                got = carry_run(case, exact, last)
+                want = carry_run(case, exact, last, kernel=False)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                print(f"{which:<8}{k:<3}{str(exact):<7}{err:>11.3e}")
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"carry kernels, {which} shard k={k} exact={exact}: "
+                         f"not bit for bit their plain versions ({err})")
+                worst = max(worst, err)
+    # one block's X solve of the 4 variables: forward and backward at k = 3
+    # and k = 1, a middle shard's
+    solve = [carry_case(half // 2, k, False, False) for k in (3, 1)]
+    k_ms, p_ms = [], []
+    for exact in (True, False):
+        tk, tp = in_turns(
+            lambda: [carry_run(c, exact, False) for c in solve],
+            lambda: [carry_run(c, exact, False, False) for c in solve], 20, 2)
+        k_ms.append(tk)
+        p_ms.append(tp)
+        print(f"one block's X solve of 4 variables ({half} rows x {lines} "
+              f"lines, 4 launches), exact={exact}: kernels {tk:.4f} ms, "
+              f"plain {tp:.2f} ms ({smi})")
+    note("tridiag_carry", worst, k_ms, p_ms, cells)
+    del d4, rows, solve, ga
+
+    # (b) scan at ng=4 nl=2 over 2 and 4 shards: bit for bit the unblocked
+    # split (X resharded), in both modes
+    def split_solver(backend, shards, g, p):
+        s = make_solver_3d("ADI", backend=backend, device=dev)
+        s.init(g, p)
+        s.set_plan(make_x_mesh(devices=[dev] * shards), nblockz=NBLOCKZ)
+        return s, s.state()
+
+    def split_run(s, start, nblockz, exact, steps, nl, dt_):
+        """``steps`` steps from ``start``: each step's state on the host."""
+        s.set_state(*start)
+        s.set_blocking(nblockz)
+        s.exact = exact
+        out = []
+        for _ in range(steps):
+            s.update_boundaries()
+            s.time_step(dt_, NUM_GLOBAL, nl)
+            out.append(torch.stack(tuple(s.state()[0])).cpu())
+        torch.cuda.synchronize()
+        return out
+
+    def split_ms(s, start, nl, dt_, what):
+        """ms/step at each nb of NB_TIMED (1: the reshard), both modes."""
+        out = {}
+        for nb in NB_TIMED:
+            for exact in (True, False):
+                s.set_state(*start)
+                s.set_blocking(nb)
+                s.exact = exact
+                s.update_boundaries()
+                s.time_step(dt_, NUM_GLOBAL, nl, compute_error=False)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    s.update_boundaries()
+                    s.time_step(dt_, NUM_GLOBAL, nl, compute_error=False)
+                torch.cuda.synchronize()
+                out[f"nb={nb} exact={exact}"] = (
+                    (time.perf_counter() - t0) / 2 * 1e3)
+        print(f"{what}: ms/step {json.dumps(out)} ({smi})")
+        return out
+
+    nb_b = grid.dimz // blk
+    for n in (2, 4):
+        s, start = split_solver("scan", n, grid, params)
+        counters.reset()
+        blocked = split_run(s, start, NBLOCKZ, True, 2, NUM_LOCAL, dt)
+        got = counters.read()
+        want = {k: 0 for k in got}
+        want["tridiag_carry"] = 2 * NUM_GLOBAL * NUM_LOCAL * 2 * 2 * n * nb_b
+        want["tridiag_rows"] = 2 * NUM_GLOBAL * NUM_LOCAL * 2 * 2 * n
+        print(f"scan over {n} shards, X cut into {s.x_cuts}, blocking "
+              f"{NBLOCKZ} ({nb_b} blocks of {blk}): dispatch "
+              f"{s.dispatch_report(NUM_LOCAL)['dirs']}; launches over 2 "
+              f"steps {got}")
+        if got != want:
+            fail(f"scan over {n} shards with blocking: launches {got}, "
+                 f"expected {want}")
+        if n == 2:
+            rec["tridiag_carry"]["launches"] = got["tridiag_carry"]
+        plain = split_run(s, start, 0, True, 2, NUM_LOCAL, dt)
+        for k, (a, b) in enumerate(zip(blocked, plain)):
+            if not torch.equal(a, b):
+                fail(f"scan over {n} shards, exact: step {k + 1} with "
+                     f"blocking differs from the unblocked split by "
+                     f"{float((a - b).abs().max())}")
+        print(f"exact: 2 steps with blocking {NBLOCKZ} bit for bit the "
+              f"unblocked split over {n} shards")
+        if n == 2:
+            blocked = split_run(s, start, NBLOCKZ, False, 2, NUM_LOCAL, dt)
+            plain = split_run(s, start, 0, False, 2, NUM_LOCAL, dt)
+            gap = max(float((a - b).abs().max())
+                      for a, b in zip(blocked, plain))
+            same = all(torch.equal(a, b) for a, b in zip(blocked, plain))
+            print(f"reciprocal: 2 steps with blocking "
+                  f"{'bit for bit' if same else 'not bit for bit'} the "
+                  f"unblocked split, max|delta| {gap:.3e} (the wavefront "
+                  f"multiplies row 0 of each X line by 1/b where the "
+                  f"reshard's scan rows divide: equal wherever b = 1 or 2)")
+            check_close("scan reciprocal, blocking vs unblocked",
+                        blocked[-1], plain[-1])
+            timing["256 scan 2 shards"] = split_ms(s, start, NUM_LOCAL, dt,
+                                                   "scan over 2 shards")
+        del s, start, blocked, plain
+
+    # (c) auto at nl=3 over 2 shards: X on the wavefront, Y and Z on the
+    # pair and stream kernels, against the unblocked split (X on the line
+    # sweep); (d) auto at nl=2 with blocking: X stays on the pair kernel
+    s, start = split_solver("auto", 2, grid, params)
+    counters.reset()
+    blocked = split_run(s, start, NBLOCKZ, True, 1, 3, dt)
+    got = counters.read()
+    rep = s.dispatch_report(3)["dirs"]
+    print(f"auto nl=3 over 2 shards, blocking {NBLOCKZ}: dispatch {rep}; "
+          f"launches {got}")
+    if rep != {"X": "fallback", "Y": "pair+stream", "Z": "pair+stream"} \
+            or got["line_sweep"] or not (got["tridiag_carry"]
+                                         and got["pair_sweep"]
+                                         and got["stream_sweep"]):
+        fail(f"auto nl=3 with blocking: dispatch {rep}, launches {got}")
+    plain = split_run(s, start, 0, True, 1, 3, dt)
+    e = check_close("auto nl=3 over 2 shards, blocking vs unblocked",
+                    blocked[0], plain[0])
+    print(f"auto nl=3 over 2 shards: the wavefront step within {e:.3e} of "
+          f"the unblocked split's (X on the line sweep; bound {TOL} x "
+          f"max(1, max|field|))")
+    # the X direction alone at nl=3, from a noisy state whose out layer is
+    # stored in bf16 as the pair and stream kernels leave it: auto's
+    # wavefront (float32 rows, exact) bit for bit the single device's
+    # scan X direction, whose recurrence the carry kernels compute
+    ga1 = grid_arrays(grid, dev)
+    temp4, rhs4, op4 = noisy_state(ga1, grid, gen_t)
+    op4 = op4.bfloat16()
+    scal = adi3d._nl_scal(0, s.pa, dt)
+    one = adi3d.x_direction("fallback", [rhs4], [temp4], [op4], ga1, s.pa,
+                            scal, 3, True, False, "scan")
+    slabs = [s.plan.split(f, -3, s.x_cuts) for f in (rhs4, temp4, op4)]
+    del ga1, temp4, rhs4, op4
+    s.set_blocking(NBLOCKZ)
+    split = adi3d.x_direction("fallback", *slabs, s.ga, s.pa, scal, 3, True,
+                              False, adi3d.resolve_backend("auto", s.plan),
+                              s.plan)
+    for what, a, b in zip(("temp", "out"), split, one):
+        a = s.plan.gather(a, -3)
+        if a.dtype != torch.float32 or not torch.equal(a, b[0]):
+            fail(f"auto nl=3 wavefront X direction, {what}: {a.dtype}, "
+                 f"max|delta| {float((a.float() - b[0]).abs().max())} "
+                 f"against the single device's scan X direction")
+    print("auto nl=3 over 2 shards: the wavefront X direction (temp, out) "
+          "bit for bit the single device's scan X direction, float32")
+    del one, slabs, split
+    timing["256 nl=3 2 shards"] = split_ms(s, start, 3, dt,
+                                           "auto nl=3 over 2 shards")
+    counters.reset()
+    blocked = split_run(s, start, NBLOCKZ, True, 1, NUM_LOCAL, dt)
+    got = counters.read()
+    rep = s.dispatch_report(NUM_LOCAL)["dirs"]
+    print(f"auto nl=2 over 2 shards, blocking {NBLOCKZ}: dispatch {rep}; "
+          f"launches {got}")
+    if rep["X"] != "pair" or got["tridiag_carry"] or \
+            not torch.equal(blocked[0], p5_steps.states[0]):
+        fail(f"auto nl=2 with blocking: dispatch {rep}, launches {got}, "
+             f"or the step differs from phase 5's")
+    print("auto nl=2 with blocking: X stays on the pair kernel, the step "
+          "bit for bit phase 5's first")
+    del s, start, blocked, plain
+    torch.cuda.empty_cache()
+
+    # (e) 383^3 fused_dma over 2 shards: X on the wavefront (383 columns
+    # divide only by 1 and 383: one block), Y and Z on the line sweep; the
+    # step timed on its own (synchronised, the state's copy to the host
+    # left out), beside the unblocked split's
+    s, start = split_solver("fused_dma", 2, grid_l, params_l)
+    step_ms = {}
+    for nblockz in (0, NBLOCKZ):
+        s.set_state(*start)
+        s.set_blocking(nblockz)
+        s.exact = True
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.update_boundaries()
+        s.time_step(dt_l, NUM_GLOBAL, NUM_LOCAL)
+        torch.cuda.synchronize()
+        step_ms[nblockz] = (time.perf_counter() - t0) * 1e3
+    got = counters.read()
+    blocked = torch.stack(tuple(s.state()[0])).cpu()
+    e = check_close("383^3 fused_dma over 2 shards with blocking vs phase 8",
+                    blocked, p8_steps.states[0])
+    print(f"383^3 fused_dma over 2 shards, blocking {NBLOCKZ} "
+          f"({_largest_divisor_leq(grid_l.dimz, NBLOCKZ)} block): dispatch "
+          f"{s.dispatch_report(NUM_LOCAL)['dirs']}, launches {got}; "
+          f"{step_ms[NBLOCKZ]:.1f} ms for the step, unblocked "
+          f"{step_ms[0]:.1f} (exact, {smi}); max|delta| vs phase 8's step "
+          f"{e:.3e}")
+    if not (got["tridiag_carry"] and got["line_sweep"]):
+        fail(f"383^3 fused_dma with blocking: launches {got}")
+    del s, start, blocked
+    torch.cuda.empty_cache()
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+    # --------------------------------- 25. the schemes split over X
+    t_phase = time.perf_counter()
+    phase(f"25. Explicit and Stable split over X on one card: the "
+          f"{SCHEME_CHECK_N}^3 lid cavity over 2 and 4 shards, the "
+          f"{SCHEME_N}^3 one over 2, against the unsharded steps")
+
+    def same_scheme(what, sv, state, err, iters, it_sv):
+        got = torch.stack(tuple(sv.state()[0])).cpu()
+        if not torch.equal(got, state) or it_sv != iters or not (
+                abs(sv.last_err - err) <= 1e-6 * abs(err)):
+            fail(f"{what}: max|delta| {float((got - state).abs().max())}, "
+                 f"Poisson {it_sv} against {iters}, error {sv.last_err} "
+                 f"against {err}")
+        print(f"{what}: bit for bit the unsharded steps, Poisson iterations "
+              f"{it_sv}, error {sv.last_err:.6e}")
+
+    for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
+        one, _, it_one = scheme_3d(scheme, SCHEME_CHECK_N, steps, dev)
+        ref = (torch.stack(tuple(one.cur)).cpu(), one.last_err, it_one)
+        del one
+        for n in (2, 4):
+            sv, _, its = scheme_3d(scheme, SCHEME_CHECK_N, steps, dev, n)
+            same_scheme(f"{scheme} {SCHEME_CHECK_N}^3 over {n} shards", sv,
+                        *ref, its)
+            del sv
+    for scheme, steps in (("Explicit", EXPLICIT_STEPS), ("Stable", 1)):
+        sv, ms, its = scheme_3d(scheme, SCHEME_N, steps, dev, 2)
+        timing[f"{SCHEME_N} {scheme} ng={SCHEME_NG} 2 shards"] = {
+            True: ms[-1]}
+        same_scheme(f"{scheme} {SCHEME_N}^3 over 2 shards", sv, *p19[scheme],
+                    its)
+        print(f"{scheme} {SCHEME_N}^3: ms a step over 2 shards {ms}, "
+              f"unsharded (phase 19) "
+              f"{timing[f'{SCHEME_N} {scheme} ng={SCHEME_NG}'][True]:.1f}")
+        del sv
+    torch.cuda.empty_cache()
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
     # ------------------------------------------------------------ result
     phase("result")
     print(f"ms/step by slice and exact mode: {json.dumps(timing)}")
@@ -2325,7 +2677,7 @@ def main() -> int:
     print(json.dumps({"kernels": list(rec.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

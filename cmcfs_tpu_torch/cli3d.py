@@ -17,9 +17,13 @@ cmcfs_tpu.  ``shards N`` (or ``GPU N``, the reference's grammar) splits X
 over the first N cards, and exits with status 2 naming the visible count
 when fewer are visible; ``balance EVEN_X|EVEN_SEGMENTS|EVEN_VOLUME``
 moves the split's cuts where cmcfs_tpu's padding puts them
-(``parallel/balance.py``).  The
-run needs a CUDA device.  cmcfs_tpu's other multi-device flags exit with
-status 2 and name their ROADMAP item.
+(``parallel/balance.py``); ``blocking [nBlockZ]`` solves the X direction
+by the Z-blocked wavefront across the shards where X takes the fallback
+path (a pair X direction is left as it is, as in cmcfs_tpu; no number,
+or 1, keeps the reshard).  Explicit and Stable split as ADI does.  The
+run needs a CUDA device.  cmcfs_tpu's multi-host flags (``hosts``,
+``rank``, ``coordinator``, ``orbax``) exit with status 2 and name their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,8 +50,6 @@ from .utils.timer import CpuTimer, print_time_step_info
 
 # cmcfs_tpu CLI flags the port does not have yet, and where they are queued
 UNPORTED_FLAGS = {
-    "blocking": "the Z-blocked wavefront X sweep across GPUs (ROADMAP A8 "
-                "part 2)",
     "hosts": "multi-host runs (ROADMAP A8 part 3)",
     "rank": "multi-host runs (ROADMAP A8 part 3)",
     "coordinator": "multi-host runs (ROADMAP A8 part 3)",
@@ -124,12 +126,14 @@ def run_case(input_path: str, output_base: str, config_path: str,
              max_steps: int | None = None, collect_errs: bool = False,
              checkpoint: str | None = None, resume: str | None = None,
              profile: bool = False, carried: bool = False, device="cuda",
-             shards: int = 1, balance: str | None = None, devices=None):
+             shards: int = 1, balance: str | None = None, devices=None,
+             nblockz: int = 0):
     """Run one case end to end (cmcfs_tpu/cli3d.py:101-334); returns
     (solver, errs).  ``shards`` > 1 splits X over that many shards
     (``parallel.mesh.make_x_mesh``): the first cards, ``devices`` when
     given (an explicit list, e.g. ``["cuda:0"] * 4`` to run four shards on
-    one card), or CPU shards with ``device="cpu"``."""
+    one card), or CPU shards with ``device="cpu"``; ``nblockz`` > 1 then
+    solves a fallback X direction by the Z-blocked wavefront."""
     t0 = time.perf_counter()
     cfg, params, grid = load_case(input_path, config_path, align=align)
     build_s = time.perf_counter() - t0
@@ -146,7 +150,7 @@ def run_case(input_path: str, output_base: str, config_path: str,
     solver.init(grid, params)
     if shards > 1:
         solver.set_plan(make_x_mesh(shards, devices=devices, device=device),
-                        balance=balance)
+                        nblockz=nblockz, balance=balance)
 
     frames = grid.num_frames
     length = grid.cycle_len
@@ -266,6 +270,12 @@ def main(argv=None, device="cuda") -> int:
             if i + 1 < len(argv) and argv[i + 1].isdigit():
                 extras.setdefault("shards", argv[i + 1])
                 i += 1
+        elif arg == "blocking":
+            # the reference's grammar, blocking [nBlockZ]
+            # (FluidSolver3D.cpp:43-51); no number leaves the reshard
+            if i + 1 < len(argv) and argv[i + 1].isdigit():
+                extras["nblockz"] = argv[i + 1]
+                i += 1
         elif arg in UNPORTED_FLAGS:
             print(f"flag {arg!r} is not supported by the PyTorch port yet: "
                   f"{UNPORTED_FLAGS[arg]}", file=sys.stderr)
@@ -292,7 +302,7 @@ def main(argv=None, device="cuda") -> int:
              checkpoint=extras.get("checkpoint"), resume=extras.get("resume"),
              profile=flags["profile"], carried=flags["carried"],
              device=device, shards=shards, balance=extras.get("balance"),
-             devices=devices)
+             devices=devices, nblockz=int(extras.get("nblockz", 0)))
     return 0
 
 

@@ -50,6 +50,12 @@ SIGNATURES = {
                                      _I),
     "cmcfs_line_sweep_bf16": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P], _I),
     "cmcfs_tridiag_rows": ([_P] * 6 + [_L, _I, _L, _I, _I, _I, _P], _I),
+    # the wavefront's carry Thomas passes: n, n1, s1, n2, sp, off, then
+    # the systems' strides, k (and last, exact forward)
+    "cmcfs_tridiag_carry_fwd": ([_P] * 10 + [_I, _I, _L, _I, _L, _L, _L, _L,
+                                             _I, _I, _I, _P], _I),
+    "cmcfs_tridiag_carry_bwd": ([_P] * 5 + [_I, _I, _L, _I, _L, _L, _L, _I,
+                                            _P], _I),
     # the measurement probes (cmcfs_tpu_torch/probes)
     "cmcfs_probe_rowcost": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "cmcfs_probe_ilp": ([_P] * 4 + [_I] * 5 + [_P], _I),

@@ -75,7 +75,8 @@ from ..ops.pcr_sweep import pcr_sweep
 from ..ops.stream_sweep import stream_sweep
 from ..ops.sweep_common import build_abc
 from ..ops.tridiag import tridiag_solve
-from .common3d import GridArrays3D, State3D
+from ..parallel.pipeline import pipelined_tridiag_x_blocked
+from .common3d import GridArrays3D, State3D, is_bv, sharded_div_error
 
 ERR_THRESHOLD = 0.01       # reference AdiSolver3D.h:32
 
@@ -294,6 +295,45 @@ def _build_and_solve(axis, rhs4, temp4, ga, pa, scal, exact, backend):
     return x
 
 
+def _wavefront_solve(plan, pa, scal, exact):
+    """The X solve of a fallback X direction under a plan with ``nblockz``
+    > 1: the Z-blocked wavefront (cmcfs_tpu adi3d.py:339-358, 373-378), a
+    ``solve`` for ``_solve_direction``.  Each X slab builds the row path's
+    rows (``fallback_rhs``, ``fold_d``, ``row_coeffs``: float32 for every
+    backend, no bf16 cast) on its owned planes from ``temp``, whose halos
+    the direction fills first; the pipeline (``parallel/pipeline.py``)
+    solves the X lines across the shards, u, v and w on their shared rows
+    and T, pass A and, where the grid has duals, pass B, stitched by
+    ``take_b``.  A slab's halo planes of x are those of ``out``, so that
+    the update leaves them as they were until the next exchange."""
+    own = slice(1, -1)
+
+    def solve(rhs, temp, out, gas):
+        built = [fallback_rhs(0, r.float(), t, g, pa, scal[2])
+                 for r, t, g in zip(rhs, temp, gas)]
+
+        def solve_cls(cls_of):
+            """x of every slab's owned planes on the classes ``cls_of(g)``."""
+            rows = []
+            for (d, d_bc), t, g in zip(built, temp, gas):
+                cls = cls_of(g)
+                dk = fold_d(d, d_bc, cls)[:, own]
+                rows.append([tuple(m[own] for m in row_coeffs(
+                    0, t[0], cls, g, pa, scal, vi)) + (dv,)
+                    for vi, dv in ((0, dk[:3]), (3, dk[3:]))])
+            return [torch.cat(xs) for xs in pipelined_tridiag_x_blocked(
+                rows, plan, plan.nblockz, exact)]
+
+        xs = solve_cls(lambda g: g.cls_a[0])
+        if gas[0].cls_b[0] is not None:
+            xs = [torch.where(g.take_b[0][own], xb, x) for x, xb, g in zip(
+                xs, solve_cls(lambda g: g.cls_b[0]), gas)]
+        return [torch.cat((o[:, :1].float(), x, o[:, -1:].float()), 1)
+                for x, o in zip(xs, out)]
+
+    return solve
+
+
 def _stream_iteration(axis, rhs4, temp4, out4, ga, pa, scal, exact,
                       bf16=False):
     """_solve_stream_fused (adi3d.py:387-456): returns (temp4, out4).
@@ -316,7 +356,7 @@ def _payload(bf16):
 
 
 def _solve_direction(axis, path, rhs, temp, out, gas, pa, scal, num_local,
-                     exact, gmerge, backend, sync=None):
+                     exact, gmerge, backend, sync=None, solve=None):
     """SolveDirection (adi3d.py:1516-1566) on the chosen path.  ``rhs``,
     ``temp``, ``out`` and ``gas`` are lists, one entry a shard (one entry
     on a single device); returns the lists (temp, out).  ``sync(*lists)``
@@ -325,7 +365,10 @@ def _solve_direction(axis, path, rhs, temp, out, gas, pa, scal, num_local,
     halo lines each shard solves again so that the pair's second
     iteration reads exact neighbours (cmcfs_tpu adi3d.py:590-603), and
     ``temp``, which the stencils read across the split, before each
-    iteration of the other paths."""
+    iteration of the other paths.  ``solve(rhs, temp, out, gas)`` gives
+    the fallback's x of every shard (None: ``_build_and_solve`` on each,
+    its lines within the shard; the wavefront's lines cross the shards,
+    ``_wavefront_solve``)."""
     temp, out = list(temp), list(out)
     shards = range(len(temp))
     if path == "fallback":
@@ -336,9 +379,11 @@ def _solve_direction(axis, path, rhs, temp, out, gas, pa, scal, num_local,
         for _ in range(num_local):
             if sync:
                 sync(temp)
-            for i in shards:
-                x = _build_and_solve(axis, rhs[i], temp[i], gas[i], pa, scal,
-                                     exact, backend)
+            # one shard's x alive at a time where each solves its own
+            xs = (solve(rhs, temp, out, gas) if solve else
+                  (_build_and_solve(axis, rhs[i], temp[i], gas[i], pa, scal,
+                                    exact, backend) for i in shards))
+            for i, x in zip(shards, xs):
                 out[i] = torch.where(written[i], x, out[i])
                 temp[i] = torch.where(is_in[i], (temp[i] + out[i]) / 2.0,
                                       temp[i])
@@ -369,6 +414,42 @@ def _solve_direction(axis, path, rhs, temp, out, gas, pa, scal, num_local,
                                                 out[i], gas[i], pa, scal,
                                                 exact, bf16)
     return temp, out
+
+
+def _plan_sync(plan, dim):
+    """A ``sync`` for ``_solve_direction``: fills the halos of each list
+    of slabs along ``dim`` (``plan.exchange``)."""
+    def sync(*fields):
+        for f in fields:
+            plan.exchange(f, dim)
+    return sync
+
+
+def x_direction(path, rhs4, temp4, out4, ga, pa, scal, num_local: int,
+                exact: bool, gmerge: bool, backend: str, plan=None):
+    """The X direction on ``path`` (lists of (4, ...) fields, one entry a
+    shard; ``ga`` the GridArrays3D, or under a plan the ShardedGrid):
+    returns the lists (temp, out).  On one device it runs as Y and Z do.
+    Under a plan whose ``nblockz`` > 1 a fallback X stays on the X slabs
+    and solves its lines across them through the wavefront
+    (``_wavefront_solve``); otherwise the X lines, which cross the
+    shards, are resharded so that Y splits (cmcfs_tpu adi3d.py:604-628),
+    solved on the Y slabs and resharded back."""
+    if plan is None:
+        return _solve_direction(0, path, rhs4, temp4, out4, [ga], pa, scal,
+                                num_local, exact, gmerge, backend)
+    if path == "fallback" and plan.nblockz > 1:
+        return _solve_direction(0, path, rhs4, temp4, out4, list(ga.x), pa,
+                                scal, num_local, exact, gmerge, backend,
+                                _plan_sync(plan, -3),
+                                _wavefront_solve(plan, pa, scal, exact))
+    x_cuts = [t.shape[-3] - 2 for t in temp4]
+    ty, ry, oy = (plan.reshard(f, -3, -2, ga.y_cuts)
+                  for f in (temp4, rhs4, out4))
+    ty, oy = _solve_direction(0, path, ry, ty, oy, list(ga.y), pa, scal,
+                              num_local, exact, gmerge, backend,
+                              _plan_sync(plan, -2))
+    return tuple(plan.reshard(f, -2, -3, x_cuts) for f in (ty, oy))
 
 
 def _step_paths(ga, backend: str, num_local: int, merge_ok: tuple,
@@ -407,7 +488,8 @@ def adi_timestep_3d(cur, nxt_prev, ga, dt, num_global: int, num_local: int,
     the new state comes back as such slabs (their halos not filled).  The
     Y and Z directions run on each slab, its halos filled from the
     neighbours before each kernel call (``_solve_direction``); X reshards
-    the fields to Y slabs, runs on them and reshards back.  The halos
+    the fields to Y slabs, runs on them and reshards back, or runs the
+    wavefront on the X slabs (``x_direction``).  The halos
     wrap at the grid's ends as the single device's stencils do, so every
     owned cell reads what it reads on one device, and the new state
     equals the single device's bit for bit.  The error sums
@@ -423,14 +505,7 @@ def adi_timestep_3d(cur, nxt_prev, ga, dt, num_global: int, num_local: int,
     if plan is None:
         gas, sync = [ga], None
     else:
-        gas = list(ga.x)
-
-        def sync(*fields, dim=-3):
-            for f in fields:
-                plan.exchange(f, dim)
-
-    is_bv = [(g.types == NodeType.BOUND) | (g.types == NodeType.VALVE)
-             for g in gas]
+        gas, sync = list(ga.x), _plan_sync(plan, -3)
     is_in = [g.types == NodeType.IN for g in gas]
     with section("CopyLayer"):
         if plan is None:
@@ -438,27 +513,15 @@ def adi_timestep_3d(cur, nxt_prev, ga, dt, num_global: int, num_local: int,
             nxt4 = [torch.stack(tuple(nxt_prev))]
         else:
             cur4, nxt4 = list(cur), list(nxt_prev)
-        nxt4 = [torch.where(m, c, n) for m, c, n in zip(is_bv, cur4, nxt4)]
+        nxt4 = [torch.where(is_bv(g), c, n)
+                for g, c, n in zip(gas, cur4, nxt4)]
     temp4 = cur4
     half4 = [torch.zeros_like(c) for c in cur4]
 
-    def direction(axis, rhs4, temp4, out4, gmerge=False):
+    def direction(axis, rhs4, temp4, out4):
         return _solve_direction(axis, paths[axis], rhs4, temp4, out4, gas,
-                                pa, scals[axis], num_local, exact, gmerge,
+                                pa, scals[axis], num_local, exact, False,
                                 backend, sync)
-
-    def x_direction(rhs4, temp4, out4):
-        if plan is None:
-            return direction(0, rhs4, temp4, out4, gmerge=gfold)
-        # X lines cross the shards: reshard so that Y splits (cmcfs_tpu
-        # adi3d.py:604-628), and back
-        x_cuts = [t.shape[-3] - 2 for t in temp4]
-        ty, ry, oy = (plan.reshard(f, -3, -2, ga.y_cuts)
-                      for f in (temp4, rhs4, out4))
-        ty, oy = _solve_direction(
-            0, paths[0], ry, ty, oy, list(ga.y), pa, scals[0], num_local,
-            exact, gfold, backend, lambda *f: sync(*f, dim=-2))
-        return tuple(plan.reshard(f, -2, -3, x_cuts) for f in (ty, oy))
 
     # the bf16 backends' Z rhs, rounded once a step for the kernels
     rhs_z = ([c.bfloat16() for c in cur4] if backend in BF16_BACKENDS
@@ -469,7 +532,9 @@ def adi_timestep_3d(cur, nxt_prev, ga, dt, num_global: int, num_local: int,
         with section("SolveSegments_Y"):
             temp4, half4 = direction(1, nxt4, temp4, half4)
         with section("SolveSegments_X"):
-            temp4, nxt4 = x_direction(half4, temp4, nxt4)
+            temp4, nxt4 = x_direction(paths[0], half4, temp4, nxt4, ga, pa,
+                                      scals[0], num_local, exact, gfold,
+                                      backend, plan)
         with section("MergeLayer"):
             if not gfold:
                 temp4 = [torch.where(m, (t + n) / 2.0, t)
@@ -483,12 +548,7 @@ def adi_timestep_3d(cur, nxt_prev, ga, dt, num_global: int, num_local: int,
             err = stencil.div_error_3d(n4[0], n4[1], n4[2], ga.types,
                                        pa.dx, pa.dy, pa.dz)
         else:
-            sync(nxt4)
-            dev = plan.devices[0]
-            sums = [stencil.div_error_sum_3d(n4[0], n4[1], n4[2], m, pa.dx,
-                                             pa.dy, pa.dz).to(dev)
-                    for n4, m in zip(nxt4, ga.err_mask)]
-            err = torch.stack(sums).sum() / max(ga.count, 1)
+            err = sharded_div_error(nxt4, ga, plan, pa)
     if plan is None:
         return State3D(*nxt4[0].unbind(0)), err
     plan.synchronize()

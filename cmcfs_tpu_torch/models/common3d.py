@@ -12,7 +12,7 @@ import torch
 
 from ..core.types import BCtype, MISSING_VALUE, NodeType
 from ..geom.grid3d import Grid3D
-from ..ops import masks
+from ..ops import masks, stencil
 from ..ops.masks import INTERIOR
 from ..ops.sweep_common import pack_masks
 
@@ -109,7 +109,9 @@ class ShardedGrid(NamedTuple):
     X padded to a multiple of the shards, ``AdiSolver3D.set_plan``);
     ``duals`` per axis, the whole grid keeps a pass B; ``err_mask`` per
     shard, the cells of the divergence metric it owns; ``count`` their
-    number over the grid."""
+    number over the grid; ``x0`` per shard, the grid's X index of its
+    slab's plane 0 (the halo before its first owned plane), which the
+    Stable scheme's red-black colouring reads."""
     x: tuple
     y: tuple
     y_cuts: tuple
@@ -117,6 +119,7 @@ class ShardedGrid(NamedTuple):
     duals: tuple
     err_mask: tuple
     count: int
+    x0: tuple
 
 
 def shard_grid(types, bcv, bct, vals, plan, x_cuts, shape) -> ShardedGrid:
@@ -164,7 +167,54 @@ def shard_grid(types, bcv, bct, vals, plan, x_cuts, shape) -> ShardedGrid:
                        y=parts(1, y_cuts, (0,)), y_cuts=tuple(y_cuts),
                        shape=tuple(shape),
                        duals=tuple(b is not None for _, b, _ in classes),
-                       err_mask=tuple(err_mask), count=int(mask.sum()))
+                       err_mask=tuple(err_mask), count=int(mask.sum()),
+                       x0=tuple(int(s) - 1 for s in
+                                np.cumsum([0] + list(x_cuts[:-1]))))
+
+
+def exchange_states(plan, states: list) -> None:
+    """Fill the X halos of every field of a state held as one State3D a
+    shard (``plan.exchange`` field by field, in place)."""
+    for f in range(len(states[0])):
+        plan.exchange([s[f] for s in states], -3)
+
+
+def sharded_div_error(slabs: list, sg: ShardedGrid, plan, pa):
+    """``stencil.div_error_3d`` of a state held as X slabs (the stacked
+    (4, ...) fields a shard): the halos filled, each shard's owned cells
+    summed, the sums added on the first shard's device and divided by the
+    grid's count (the reduction of the reference's EvalDivError,
+    TimeLayer3D.h:595-641).  It equals the single device's up to the
+    order of the sums."""
+    plan.exchange(slabs, -3)
+    dev = plan.devices[0]
+    sums = [stencil.div_error_sum_3d(n4[0], n4[1], n4[2], m, pa.dx, pa.dy,
+                                     pa.dz).to(dev)
+            for n4, m in zip(slabs, sg.err_mask)]
+    return torch.stack(sums).sum() / max(sg.count, 1)
+
+
+def is_bv(g: GridArrays3D) -> torch.Tensor:
+    """The BOUND and VALVE cells, which a step re-seeds from ``cur``."""
+    return (g.types == NodeType.BOUND) | (g.types == NodeType.VALVE)
+
+
+def finish_step(nxts: list, ga, pa, compute_error: bool, plan=None):
+    """A scheme step's (new_cur, err) from its next layer, one State3D a
+    shard: on one device the State3D and ``stencil.div_error_3d``; under
+    a plan (``ga`` the ShardedGrid) the stacked slabs and
+    ``sharded_div_error``, after each device is synchronized once."""
+    if plan is None:
+        nxt = nxts[0]
+        if not compute_error:
+            return nxt, torch.tensor(-1.0, dtype=torch.float32)
+        return nxt, stencil.div_error_3d(nxt.u, nxt.v, nxt.w, ga.types,
+                                         pa.dx, pa.dy, pa.dz)
+    slabs = [torch.stack(tuple(n)) for n in nxts]
+    err = (sharded_div_error(slabs, ga, plan, pa) if compute_error
+           else torch.tensor(-1.0, dtype=torch.float32))
+    plan.synchronize()
+    return slabs, err
 
 
 def update_slabs(slabs: list, sg: ShardedGrid) -> list:
@@ -172,7 +222,7 @@ def update_slabs(slabs: list, sg: ShardedGrid) -> list:
     (4, ...) fields of a shard."""
     out = []
     for x4, g in zip(slabs, sg.x):
-        m = (g.types == NodeType.BOUND) | (g.types == NodeType.VALVE)
+        m = is_bv(g)
         out.append(torch.stack([
             torch.where(m, v, f) for v, f in zip(
                 (g.val_u, g.val_v, g.val_w, g.val_T), x4)]))
@@ -210,7 +260,7 @@ def init_state(grid: Grid3D, device) -> State3D:
 
 def update_boundaries(state: State3D, ga: GridArrays3D) -> State3D:
     """Impose grid values on BOUND/VALVE cells (AdiSolver3D.cpp:286-304)."""
-    m = (ga.types == NodeType.BOUND) | (ga.types == NodeType.VALVE)
+    m = is_bv(ga)
     return State3D(
         u=torch.where(m, ga.val_u, state.u),
         v=torch.where(m, ga.val_v, state.v),

@@ -16,7 +16,8 @@ import torch
 from ..core.types import NodeType
 from ..ops import stencil
 from .adi3d import ParamsArgs3D
-from .common3d import GridArrays3D, State3D
+from .common3d import (GridArrays3D, State3D, exchange_states,
+                       finish_step, is_bv)
 
 _F = np.float32
 
@@ -55,26 +56,40 @@ def _explicit_update(cur: State3D, temp: State3D, pa: ParamsArgs3D, dt):
     return State3D(nu, nv, nw, nT)
 
 
-def explicit_timestep_3d(cur: State3D, nxt_prev: State3D, ga: GridArrays3D,
-                         dt, num_global: int, num_local: int,
-                         pa: ParamsArgs3D, compute_error: bool = True):
+def explicit_timestep_3d(cur, nxt_prev, ga: GridArrays3D, dt,
+                         num_global: int, num_local: int, pa: ParamsArgs3D,
+                         compute_error: bool = True, plan=None):
     """One step (explicit3d.py:56-72): returns (new_cur, err), ``err`` a
     0-d float32 tensor, or -1.0 when ``compute_error`` is False.
     ``nxt_prev`` is the persistent next layer; its BOUND/VALVE cells are
-    re-seeded from ``cur``.  ``num_local`` is unused, as in cmcfs_tpu."""
-    types = ga.types
-    is_in = types == NodeType.IN
-    is_bv = (types == NodeType.BOUND) | (types == NodeType.VALVE)
-    nxt = State3D(*(torch.where(is_bv, c, n) for c, n in zip(cur, nxt_prev)))
-    temp = cur
-    for _ in range(num_global):
-        sol = _explicit_update(cur, temp, pa, dt)
-        nxt = State3D(*(torch.where(is_in, s, n) for n, s in zip(nxt, sol)))
-        temp = State3D(*(torch.where(is_in, (t + n) / 2.0, t)
-                         for t, n in zip(temp, nxt)))
-    if compute_error:
-        err = stencil.div_error_3d(nxt.u, nxt.v, nxt.w, types,
-                                   pa.dx, pa.dy, pa.dz)
+    re-seeded from ``cur``.  ``num_local`` is unused, as in cmcfs_tpu.
+
+    ``plan`` (``parallel.mesh.ShardingPlan``) splits X over its shards, as
+    the ADI step does: ``cur`` and ``nxt_prev`` are the plan's X slabs of
+    the stacked (4, nx, ny, nz) state, ``ga`` the grid's ShardedGrid, and
+    the new state comes back as slabs.  The stencils read one plane past
+    each cell, so temp's halos are exchanged before each update and the
+    new state's before the error; every owned cell then reads what it
+    reads on one device, and the fields equal the single device's bit
+    for bit (the error up to the order of its sums)."""
+    if plan is None:
+        curs, nxts, gas = [cur], [nxt_prev], [ga]
     else:
-        err = torch.tensor(-1.0, dtype=torch.float32)
-    return nxt, err
+        curs, nxts = ([State3D(*s.unbind(0)) for s in st]
+                      for st in (cur, nxt_prev))
+        gas = list(ga.x)
+    is_in = [g.types == NodeType.IN for g in gas]
+    nxts = [State3D(*(torch.where(is_bv(g), c, n) for c, n in zip(cs, ns)))
+            for g, cs, ns in zip(gas, curs, nxts)]
+    temps = list(curs)
+    for _ in range(num_global):
+        if plan is not None:
+            exchange_states(plan, temps)
+        for i, (c, t, m) in enumerate(zip(curs, temps, is_in)):
+            sol = _explicit_update(c, t, pa, dt)
+            nxts[i] = State3D(*(torch.where(m, s, n)
+                                for n, s in zip(nxts[i], sol)))
+            temps[i] = State3D(*(torch.where(m, (a + n) / 2.0, a)
+                                 for a, n in zip(t, nxts[i])))
+    return finish_step(nxts, ga, pa, compute_error, plan)
+

@@ -7,7 +7,9 @@ iteration, so here ``it``, ``err`` and ``q`` stay on the device: each
 iteration computes ``go = (err >= thr) & (it < MAX)`` there, and a sweep
 taken when ``go`` is false leaves ``q``, ``err`` and ``it`` as they were.
 The host reads ``go`` once every ``check_every`` iterations.  The result
-equals the while loop's, iteration for iteration.
+equals the while loop's, iteration for iteration.  Under an X split the
+loop runs on every shard's slab, each shard holding a copy of ``it`` and
+``err`` (``iterate``'s ``all_max``).
 """
 from __future__ import annotations
 
@@ -46,20 +48,35 @@ def redblack_sweep(gs_value, red: torch.Tensor, black: torch.Tensor):
     return sweep
 
 
-def iterate(sweep, q: torch.Tensor, it: int = 0, err: float = 1.0,
-            check_every: int = CHECK_EVERY):
+def iterate(sweep, q, it: int = 0, err: float = 1.0,
+            check_every: int = CHECK_EVERY, all_max=None):
     """Run ``sweep(q, go) -> (q, err)`` while (err >= 1e-2) & (it < 4000),
     from iteration ``it`` with error ``err``; ``sweep`` must leave q as it
-    was where ``go`` is false.  Returns (q, iterations)."""
-    dev = q.device
-    it = torch.tensor(it, dtype=torch.int32, device=dev)
-    err = torch.tensor(err, dtype=torch.float32, device=dev)
+    was where ``go`` is false.  Returns (q, iterations).
+
+    Under an X split (``all_max`` given, ``ShardingPlan.all_max``) ``q``
+    is a list, one slab a shard, and ``sweep`` takes and returns lists:
+    one ``go`` a shard in, each shard's own error out.  ``all_max`` makes
+    each shard's error the max over the shards, so every shard holds the
+    single device's error (a max, the same in any order) and stops where
+    it stops; the host reads the first shard's."""
+    split = all_max is not None
+    qs = list(q) if split else [q]
+    its = [torch.tensor(it, dtype=torch.int32, device=t.device) for t in qs]
+    errs = [torch.tensor(err, dtype=torch.float32, device=t.device)
+            for t in qs]
     while True:
         for _ in range(check_every):
-            go = (err >= POISSON_ERR_THRESHOLD) & (it < MAX_POISSON_ITERS)
-            q, e = sweep(q, go)
-            err = torch.where(go, e, err)
-            it = it + go.to(torch.int32)
-        if not bool((err >= POISSON_ERR_THRESHOLD)
-                    & (it < MAX_POISSON_ITERS)):
-            return q, int(it)
+            gos = [(e >= POISSON_ERR_THRESHOLD) & (i < MAX_POISSON_ITERS)
+                   for e, i in zip(errs, its)]
+            if split:
+                qs, es = sweep(qs, gos)
+                es = all_max(es)
+            else:
+                q1, e1 = sweep(qs[0], gos[0])
+                qs, es = [q1], [e1]
+            errs = [torch.where(g, e, r) for g, e, r in zip(gos, es, errs)]
+            its = [i + g.to(torch.int32) for i, g in zip(its, gos)]
+        if not bool((errs[0] >= POISSON_ERR_THRESHOLD)
+                    & (its[0] < MAX_POISSON_ITERS)):
+            return (qs if split else qs[0]), int(its[0])

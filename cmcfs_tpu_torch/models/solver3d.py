@@ -55,10 +55,8 @@ class AdiSolver3D:
         carry near-equal work.  ``padded_types`` keeps that layout; the
         port cuts there without storing the padding planes, since a plane
         added at the grid's end changes what its last plane reads, and
-        its X lines' classes, where that plane holds IN cells."""
-        if nblockz > 1:
-            raise SolverError("blocking: the Z-blocked wavefront X sweep "
-                              "is not ported yet (ROADMAP A8 part 2)")
+        its X lines' classes, where that plane holds IN cells.
+        ``nblockz``: as ``set_blocking`` sets it; 0 keeps the plan's."""
         cur, nxt = self.state()
         g = self.grid
         dimx = g.dimx
@@ -85,6 +83,17 @@ class AdiSolver3D:
         self.plan = plan
         self.device = plan.devices[0]
         self.set_state(cur, nxt)
+        if nblockz:
+            self.set_blocking(nblockz)
+
+    def set_blocking(self, nblockz: int) -> None:
+        """Give the plan ``nblockz`` (``blocking nBlockZ``): > 1 sends a
+        fallback X direction through the Z-blocked wavefront X sweep
+        (``adi3d.x_direction``), 0 and 1 keep the reshard.  The cuts and
+        the state stay as they are, so a run may change it between steps;
+        the one place that sets it."""
+        from ..parallel.mesh import ShardingPlan
+        self.plan = ShardingPlan(self.plan.devices, nblockz)
 
     def state(self):
         """(cur, next) as State3D of the whole grid, under a plan gathered
@@ -186,24 +195,17 @@ def _whole_step_profiled(self, dt: float, num_global: int, num_local: int,
         self.time_step(dt, num_global, num_local)
 
 
-def _no_plan(self, plan, nblockz: int = 0, balance: str | None = None):
-    """The Explicit and Stable schemes run on one device: cmcfs_tpu runs
-    them sharded through GSPMD, which the port has not ported yet."""
-    raise SolverError(f"{self.name} split over devices is not ported yet "
-                      "(ROADMAP A8 part 4)")
-
-
 class ExplicitSolver3D(AdiSolver3D):
-    """The ADI solver's lifecycle, error gate and swap with the explicit
-    step (ref solver3d.py:221-251)."""
+    """The ADI solver's lifecycle, error gate, swap and X split
+    (``set_plan``, as cmcfs_tpu's schemes inherit it and run sharded
+    through GSPMD) with the explicit step (ref solver3d.py:221-251)."""
     name = "Explicit"
     time_step_profiled = _whole_step_profiled
-    set_plan = _no_plan
 
     def _step(self, dt, num_global, num_local, compute_error):
         return explicit3d.explicit_timestep_3d(
             self.cur, self.next, self.ga, dt, num_global, num_local, self.pa,
-            compute_error=compute_error)
+            compute_error=compute_error, plan=self.plan)
 
 
 class StableSolver3D(AdiSolver3D):
@@ -211,7 +213,6 @@ class StableSolver3D(AdiSolver3D):
     solver3d.py:221-251)."""
     name = "Stable"
     time_step_profiled = _whole_step_profiled
-    set_plan = _no_plan
     last_poisson_iters = ()
 
     def _step(self, dt, num_global, num_local, compute_error):
@@ -219,7 +220,7 @@ class StableSolver3D(AdiSolver3D):
         # diagnostic, not an output
         nxt, err, self.last_poisson_iters = stable3d.stable_timestep_3d(
             self.cur, self.next, self.ga, dt, num_global, num_local, self.pa,
-            compute_error=compute_error)
+            compute_error=compute_error, plan=self.plan)
         return nxt, err
 
 

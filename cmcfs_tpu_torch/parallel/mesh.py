@@ -22,6 +22,10 @@ is the MGPU_EMU analogue on one card, ``["cpu"] * 4`` the counterpart of
 cmcfs_tpu's virtual CPU mesh (tests/conftest.py).  Every copy goes onto
 its destination with ``non_blocking=True``; the step synchronizes each
 device once at its end (``synchronize``).
+
+``nblockz`` > 1 (the reference's ``blocking nBlockZ``) sends the X
+sweep's fallback through the Z-blocked wavefront (``parallel/pipeline.py``)
+instead of the reshard, as cmcfs_tpu's plan does (mesh.py:33-51).
 """
 from __future__ import annotations
 
@@ -47,10 +51,11 @@ class ShardingPlan:
     apply at the grid's ends, so that a step over the shards reads what
     the single device's step reads."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, nblockz: int = 0):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a plan needs at least one device")
+        self.nblockz = nblockz
 
     @property
     def n(self) -> int:
@@ -110,6 +115,14 @@ class ShardingPlan:
             out.append(t)
             b0 += c
         return out
+
+    def all_max(self, vals: list) -> list:
+        """The max of one 0-d tensor a shard, reduced on the first shard's
+        device and copied back to each shard's device (the Poisson loop's
+        stop test: a max is the same in any order)."""
+        dev = self.devices[0]
+        m = torch.stack([v.to(dev, non_blocking=True) for v in vals]).amax()
+        return [m.to(d, non_blocking=True) for d in self.devices]
 
     def synchronize(self) -> None:
         """Wait for every CUDA device of the plan (once each)."""

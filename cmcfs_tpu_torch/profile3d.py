@@ -2,7 +2,7 @@
 
     python -m cmcfs_tpu_torch.profile3d [--dx 0.00409] [--num-local 2]
         [--backend auto] [--steps 3] [--inexact] [--baffle N] [--shards N]
-        [--cards]
+        [--cards] [--blocking NB]
 
 Builds the extruded bench box (``scripts/gen_box_case.gen``; dx 0.00409
 is 256^3, 0.0027267 is ``bench --case 3d384``'s 383^3) with num_global=4,
@@ -11,7 +11,9 @@ or with ``--baffle N`` the N^3 lid cavity with the FREE baffle
 Re 200, Pr 0.72, lambda 1.4, dt 0.01, as ``chip_smoke.py`` runs it),
 with ``--shards N`` split over X into N shards on the one card (the
 MGPU_EMU analogue, ``devices=["cuda:0"] * N``; with ``--cards``, over the
-first N cards), runs one warm-up step,
+first N cards; with ``--blocking NB``, a fallback X direction on the
+Z-blocked wavefront, whose carry kernels then appear by name), runs one
+warm-up step,
 then profiles ``--steps`` steps with ``torch.profiler`` and prints: the
 dispatch, ms/step (host clock, device synchronised), the device time of
 each kernel (total, launches, share), and the device's busy share of the
@@ -73,6 +75,8 @@ def main(argv=None) -> int:
                     help="split X into N shards on cuda:0")
     ap.add_argument("--cards", action="store_true",
                     help="put the shards on cuda:0..N-1")
+    ap.add_argument("--blocking", type=int, default=0,
+                    help="nBlockZ of the wavefront X sweep under --shards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile3d needs a CUDA device", file=sys.stderr)
@@ -99,14 +103,16 @@ def main(argv=None) -> int:
     if args.shards > 1:
         from .parallel.mesh import make_x_mesh
         solver.set_plan(make_x_mesh(args.shards) if args.cards else
-                        make_x_mesh(devices=["cuda:0"] * args.shards))
+                        make_x_mesh(devices=["cuda:0"] * args.shards),
+                        nblockz=args.blocking)
     rep = solver.dispatch_report(num_local)
     ga = solver.ga if solver.plan is None else solver.ga.x[0]
     print(f"grid {grid.dimx}x{grid.dimy}x{grid.dimz}, ng={num_global} "
           f"nl={num_local}, exact={solver.exact}; dispatch: "
           f"backend={rep['backend']} pad={rep['pad']} pcr={rep['pcr']} "
           f"bf16={rep['bf16']} dirs={rep['dirs']}; dual planes "
-          f"{[f is not None for f in ga.dual_flags]}; shards {args.shards}")
+          f"{[f is not None for f in ga.dual_flags]}; shards {args.shards}, "
+          f"blocking {args.blocking}")
 
     def step():
         solver.update_boundaries()
@@ -118,7 +124,8 @@ def main(argv=None) -> int:
 # the port's own kernels (kernels/csrc/*.cu); every other device kernel is
 # PyTorch's (the RHS build, folds, merges and copies around them)
 PORT_KERNELS = ("pair_sweep_iter_kernel", "line_sweep_kernel",
-                "tridiag_rows_kernel", "pcr_sweep_iter_kernel")
+                "tridiag_rows_kernel", "pcr_sweep_iter_kernel",
+                "carry_fwd_kernel", "carry_bwd_kernel")
 
 
 def profile_steps(step, steps: int) -> int:

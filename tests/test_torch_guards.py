@@ -112,20 +112,21 @@ def test_cuda_device_raises_without_cuda():
 @pytest.mark.parametrize("flag", ["GPU", "shards", "blocking", "orbax",
                                   "hosts", "balance", "rank", "coordinator"])
 def test_cli_refuses_unported_flag(flag, capsys, tmp_path):
-    """The wavefront X sweep, multi-host runs and the orbax tier wait for
-    ROADMAP A8 parts 2 and 3.  ``GPU n``, ``shards n`` and ``balance``
-    used to be refused too (A8 part 1); each now runs one CPU step of a
-    tiny box case (16^3) split over 2 CPU shards (``balance EVEN_VOLUME``
-    over 3, whose padding plane it places) and writes the unsharded run's
-    NetCDF file byte for byte."""
-    if flag not in ("GPU", "shards", "balance"):
+    """Multi-host runs and the orbax tier wait for ROADMAP A8 part 3.
+    ``GPU n``, ``shards n``, ``balance`` (A8 part 1) and ``blocking`` (the
+    Z-blocked wavefront, A8 part 2) used to be refused too; each now runs
+    one CPU step of a tiny box case (16^3) split over 2 CPU shards
+    (``balance EVEN_VOLUME`` over 3, whose padding plane it places;
+    ``blocking 4`` with backend ``scan``, whose X direction takes the
+    fallback and so the wavefront) and writes the unsharded run's NetCDF
+    file byte for byte."""
+    if flag not in ("GPU", "shards", "balance", "blocking"):
         argv = ["data.txt", "out", "config.txt", flag]
         if flag in ("hosts", "rank", "coordinator"):
             argv.append("2")
         assert cli3d.main(argv) == 2
         err = capsys.readouterr().err
-        assert "ROADMAP A8 part " + ("2" if flag == "blocking" else "3") \
-            in err
+        assert "ROADMAP A8 part 3" in err
         return
     from scripts.gen_box_case import gen
     data, cfgp = gen(str(tmp_path / "case"), dx=0.07, time_steps=2,
@@ -136,11 +137,13 @@ def test_cli_refuses_unported_flag(flag, capsys, tmp_path):
         f.write(text.replace("out_time_steps \t1000000",
                              "out_time_steps \t1"))
     split = {"GPU": ["GPU", "2"], "shards": ["shards", "2"],
-             "balance": ["shards", "3", "balance", "EVEN_VOLUME"]}[flag]
+             "balance": ["shards", "3", "balance", "EVEN_VOLUME"],
+             "blocking": ["shards", "2", "blocking", "4"]}[flag]
+    both = ["backend", "scan"] if flag == "blocking" else []
     outs = []
     for name, extra in (("one", []), ("split", split)):
         base = str(tmp_path / name)
-        assert cli3d.main([data, base, cfgp, "quiet"] + extra,
+        assert cli3d.main([data, base, cfgp, "quiet"] + both + extra,
                           device="cpu") == 0
         with open(base + "_res.nc", "rb") as f:
             outs.append(f.read())

@@ -30,7 +30,11 @@ bf16 inputs starting on either half of a 4-byte word
 row path's step equals the CPU's bit for bit
 (``test_row_step_card_equals_cpu``), and the step split over X equals
 the single card's bit for bit, over shards emulated on one card and over
-real cards where two or more are visible (``test_sharded_step_*``).
+real cards where two or more are visible (``test_sharded_step_*``).  The
+wavefront's carry kernels equal their plain versions bit for bit
+(``test_tridiag_carry_kernels_bitwise``), and the split ``scan`` step
+with ``blocking`` equals the unblocked split's
+(``test_wavefront_step_bitwise``).
 """
 import numpy as np
 import pytest
@@ -1302,3 +1306,107 @@ def test_sharded_step_across_cards(backend, baffle):
     from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
     for n in range(2, min(n_cards, 4) + 1):
         _split_runs(backend, baffle, make_x_mesh(n))
+
+
+def _carry_case(shape, k, seed):
+    """Rows (n, Y, Z) with b about 6, k right-hand sides laid out as the
+    3D X path lays them (the owned planes of a (4, n + 2, Y, Z) slab:
+    d[j] planes (n + 2) Y Z apart), random carries of a block."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device="cuda")
+
+    n = shape[0]
+    a, c = rnd(*shape), rnd(*shape)
+    b = rnd(*shape) + 6.0
+    d = rnd(4, n + 2, *shape[1:])[:k, 1:-1]
+    return a, b, c, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, z0, nz", [((7, 5, 40), 8, 24),
+                                           ((1, 3, 33), 0, 33),
+                                           ((64, 17, 96), 80, 16)])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("last", [False, True])
+def test_tridiag_carry_kernels_bitwise(shape, z0, nz, k, exact, last):
+    """The wavefront's carry kernels (``ops/tridiag_carry.py``) against
+    their plain versions bit for bit: one block of columns of rows with
+    d strided as the X path gives it, from random carries; the columns
+    outside the block are left alone; one launch a pass counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cmcfs_tpu_torch.ops import tridiag_carry as tc
+    a, b, c, d = _carry_case(shape, k, seed=nz + k)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cin_c = torch.randn(shape[1:-1] + (nz,), generator=g, device="cuda")
+    cin_d = torch.randn((k,) + shape[1:-1] + (nz,), generator=g,
+                        device="cuda")
+    xin = torch.randn_like(cin_d)
+    outs = []
+    before = tc.launches.count
+    for fwd, bwd in ((tc.carry_fwd, tc.carry_bwd),
+                     (tc.carry_fwd_ref, tc.carry_bwd_ref)):
+        cp = torch.full_like(a, 7.0)
+        dp = torch.full((k,) + shape, 7.0, device="cuda")
+        x = torch.full_like(dp, 7.0)
+        oc, od = fwd(a, b, c, d, cin_c, cin_d, cp, dp, z0, last, exact)
+        ox = bwd(cp, dp, xin, x, z0)
+        outs.append((cp, dp, oc, od, x, ox))
+    torch.cuda.synchronize()
+    assert tc.launches.count - before == 2
+    for got, want in zip(*outs):
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert bool((outs[0][4][..., :z0] == 7.0).all())
+
+
+def _wavefront_runs(plan, exact):
+    """One ``scan`` step of the 25 x 20 x 18 lid cavity over ``plan``
+    without and with ``blocking`` 4: each run's (state on the host, carry
+    launches)."""
+    from cmcfs_tpu_torch.models.solver3d import AdiSolver3D
+    from cmcfs_tpu_torch.ops import tridiag_carry as tc
+    grid = lid_cavity_3d(25, 20, 18)
+    runs = []
+    for nblockz in (0, 4):
+        s = AdiSolver3D(backend="scan", exact=exact, device="cuda")
+        s.init(grid, FluidParams.normalized(200.0, 0.72, 1.4))
+        s.set_plan(plan, nblockz=nblockz)
+        before = tc.launches.count
+        s.update_boundaries()
+        s.time_step(0.01, 2, 2)
+        for d in set(s.plan.devices):
+            torch.cuda.synchronize(d)
+        runs.append((torch.stack(tuple(s.state()[0])).cpu(),
+                     tc.launches.count - before))
+    (x0, n0), (x4, n4) = runs
+    assert torch.equal(x0, x4)
+    # 18 Z columns in 3 blocks of 6 (the largest divisor of 18 up to 4)
+    assert n0 == 0 and n4 == 2 * 2 * plan.n * 3 * 2 * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards, exact", [(2, True), (3, False)])
+def test_wavefront_step_bitwise(shards, exact):
+    """The split ``scan`` step with ``blocking`` 4 over shards emulated on
+    one card: bit for bit the unblocked split's (X resharded), the carry
+    kernels launched 2 x 2 passes x shards x blocks x nl x ng times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+    _wavefront_runs(make_x_mesh(devices=["cuda:0"] * shards), exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+def test_wavefront_step_across_cards(exact):
+    """The same over 2 up to 4 real cards: the carry planes copied from
+    card to card between the stages, bit for bit the unblocked split."""
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < 2:
+        pytest.skip(f"needs two or more CUDA devices, {n_cards} visible")
+    from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+    for n in range(2, min(n_cards, 4) + 1):
+        _wavefront_runs(make_x_mesh(n), exact)

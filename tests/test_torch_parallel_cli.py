@@ -4,7 +4,8 @@ gather, halo exchange and reshard; ``cli3d.run_case(..., shards=4)``
 writes the single device's NetCDF file byte for byte (the bench box at
 22^3, whose last X plane holds IN cells and whose 22 planes do not divide
 by 4); ``checkpoint`` / ``resume`` over shards; the refusals that remain
-(``profile``, ``blocking``, Explicit and Stable split over devices)."""
+(the profiled ADI step, more shards than planes) and the runs that were
+refusals (``blocking``, Explicit and Stable split over devices)."""
 import os
 
 import pytest
@@ -126,20 +127,31 @@ def test_checkpoint_resume_over_shards(tmp_path):
 
 
 def test_refusals_under_a_plan():
+    """What a plan still refuses: the profiled ADI step and a split into
+    more shards than X planes.  ``set_plan(nblockz=2)`` (A8 part 2) and
+    the Explicit and Stable schemes under a plan (A8 part 4) used to be
+    refused; each now runs a step, bit for bit its single device's."""
     grid = lid_cavity_3d(12, 10, 9)
     params = FluidParams.normalized(200.0, 0.72, 1.4)
-    adi = make_solver_3d("ADI", device="cpu")
-    adi.init(grid, params)
-    with pytest.raises(SolverError, match="ROADMAP A8 part 2"):
-        adi.set_plan(make_x_mesh(devices=["cpu"] * 2), nblockz=2)
-    adi.set_plan(make_x_mesh(devices=["cpu"] * 2))
+
+    def step(name, backend="auto", **plan):
+        s = make_solver_3d(name, backend=backend, device="cpu")
+        s.init(grid, params)
+        if plan:
+            s.set_plan(make_x_mesh(devices=["cpu"] * 2), **plan)
+        s.update_boundaries()
+        s.time_step(0.002, 2, 2)
+        return s, torch.stack(tuple(s.state()[0]))
+
+    adi, blocked = step("ADI", "scan", nblockz=2)
+    assert adi.plan.nblockz == 2
+    assert torch.equal(blocked, step("ADI", "scan")[1])
     with pytest.raises(SolverError, match="single-device"):
         adi.time_step_profiled(0.01, 1, 2, Profiler(device="cpu"))
     for name in ("Explicit", "Stable"):
-        s = make_solver_3d(name, device="cpu")
-        s.init(grid, params)
-        with pytest.raises(SolverError, match="ROADMAP A8 part 4"):
-            s.set_plan(make_x_mesh(devices=["cpu"] * 2))
+        s, split = step(name, nblockz=0)
+        assert s.plan.n == 2
+        assert torch.equal(split, step(name)[1])
     with pytest.raises(SolverError, match="too few"):
         tiny = make_solver_3d("ADI", device="cpu")
         tiny.init(lid_cavity_3d(5, 6, 6), params)
