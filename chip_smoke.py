@@ -21,19 +21,25 @@ and nvcc.  Phases, each of which raises on failure:
    launch count, ms/step, cell-updates/s, divergence error; then one
    whole step with the kernel against one with the plain version;
 6. the other backends: one step each of ``fused_dma``, ``fused`` (24
-   line-sweep launches) and ``fused_full`` (24 stream launches) from the
-   pair slice's state, each against the pair step;
+   fallback-iteration launches) and ``fused_full`` (24 stream launches)
+   from the pair slice's state, each against the pair step;
 7. odd num_local: ``run_case`` on the 256^3 box at ng=4 nl=3: dispatch
    all ``pair+stream``, 24 pair and 12 stream launches a step;
 8. long-line slice: ``run_case`` on ``bench --case 3d384``'s box
-   (383^3) at ng=4 nl=2: dispatch all ``fallback``, 24 line-sweep
-   launches a step, ms/step and cell-updates/s in both ``exact`` modes,
-   divergence error, host grid-build time, NetCDF output; one whole step
-   kernel vs plain;
+   (383^3) at ng=4 nl=2: dispatch all ``fallback``, 24 launches a step
+   of the fallback iteration (``line_sweep.fallback_iteration``) and
+   none of the line sweep alone, ms/step and cell-updates/s in both
+   ``exact`` modes, divergence error, host grid-build time, NetCDF
+   output; one whole step kernel vs plain;
 9. line-sweep kernel vs plain on that 383^3 state (X / Y / Z, lines past
    the TPU kernels' 288-cell cap; Z also at each Z tile the source
-   builds, ``line_sweep.Z_ROWS``) and on the 256^3 box (X / Y / Z, the
-   ``fused_dma`` shapes), both ``exact`` modes, with CUDA-event times;
+   builds, ``line_sweep.Z_ROWS``); the fallback iteration's launch
+   against its plain version bit for bit on the same state (X / Y / Z),
+   timed beside the plain version and the composition it replaces (the
+   right-hand side, the folds, the line sweep's launch, the two
+   ``where``s, bit for bit too); then the line sweep on the 256^3 box
+   (X / Y / Z, the shapes of dual axes of ``fused_dma``), both ``exact``
+   modes, with CUDA-event times;
 10. the 2D modes and the row solve vs plain: the 2D line sweep on the
    2D box case (``scripts/gen_box_case.gen_2d``, 1041^2) and on the
    2048^2 lid cavity, X / Y; the 2D stream sweep on the 1024^2 lid
@@ -263,6 +269,18 @@ KERNELS = {
         "cmcfs_tpu/ops/pallas_sweep.py:98",
         # adv, pk (int8), d4 in; x4 out
         4 + 1 + 16 + 16, 4 * 14),
+    # the dual-free fallback iteration on the line sweep's walk (the
+    # kernel line_sweep_kernel on FallbackRows): temp4, rhs4, out_prev4
+    # in, the packed code and the node type (int8), out4, tn4 out (the
+    # grid's values, read at the boundary rows only, left out); the line
+    # sweep's operations and 42 more a cell: 30 of the right-hand side
+    # (the dissipation's five derivatives and their products and sums),
+    # 12 of the update
+    "line_fallback": (
+        CSRC + "line_sweep.cu",
+        "cmcfs_tpu/models/adi3d.py:213-302 (_build_and_solve_3d's fused "
+        "branch: XLA around the line sweep's pallas_call)",
+        48 + 2 + 32, 4 * 14 + 42),
     "stream_sweep": (
         CSRC + "pair_sweep.cu",
         "cmcfs_tpu/ops/pallas_sweep_stream.py:400",
@@ -366,12 +384,15 @@ KERNELS = {
 # 148 a launch in the 3D pair mode (two launches a pair), 152 in the 3D
 # stream mode, 120 in 2D (the cross-line neighbour reads, mostly cache
 # hits, left out); line_sweep.cu: 85 in 3D, 69 in 2D (the scratch's six or
-# five planes written and read); tridiag_rows.cu: 20 + 16 k, 68 for the
+# five planes written and read), 147 the fallback iteration (its
+# scratch, and temp, out_prev and the masks read again on the way back;
+# the cross-line neighbours left out); tridiag_rows.cu: 20 + 16 k, 68 for the
 # velocity launch (k = 3), 36 a variable in 2D (k = 1); the dual pair 198
 # a launch; pcr_sweep.cu 99 a launch; tridiag_carry.cu the compulsory 104
 # (no scratch: c' and d' are its outputs)
 MOVED = {"pair_sweep": 2 * 148, "stream_sweep": 152, "stream_sweep_2d": 120,
-         "line_sweep": 85, "line_sweep_2d": 69, "tridiag_rows": 68,
+         "line_sweep": 85, "line_sweep_2d": 69, "line_fallback": 147,
+         "tridiag_rows": 68,
          "tridiag_rows_2d": 36, "pair_sweep_dual": 2 * 198,
          "pcr_sweep": 2 * 99, "tridiag_carry": 104}
 # the probes: (source, the TPU probe it replaces, the variant whose
@@ -627,6 +648,7 @@ def main() -> int:
                         pcr_sweep_bf16=apart(pcs.bf16_launches),
                         stream_sweep_bf16=apart(ss.bf16_launches),
                         line_sweep_bf16=apart(ls.bf16_launches),
+                        line_fallback=apart(ls.fused_launches),
                         tridiag_carry=tc)
     rec = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
                "launches": 0, "max_abs_err": 0.0, "ms": None,
@@ -852,8 +874,8 @@ def main() -> int:
             solver.pa)
     kw = dict(exact=False, compute_error=False, merge_ok=solver.merge_ok)
     ref4 = torch.stack(adi3d.adi_timestep_3d(*args, **kw)[0])
-    for backend, kernel in (("fused_dma", "line_sweep"),
-                            ("fused", "line_sweep"),
+    for backend, kernel in (("fused_dma", "line_fallback"),
+                            ("fused", "line_fallback"),
                             ("fused_full", "stream_sweep")):
         counters.reset()
         torch.cuda.synchronize()
@@ -896,10 +918,11 @@ def main() -> int:
     with StepRecorder(keep=1) as p8_steps:
         solver, got = run_slice(data_l, cfgp_l, "box383", LONG_STEPS,
                                 "fallback",
-                                {"line_sweep": LONG_STEPS * per_step,
-                                 "pair_sweep": 0, "stream_sweep": 0})
+                                {"line_fallback": LONG_STEPS * per_step,
+                                 "line_sweep": 0, "pair_sweep": 0,
+                                 "stream_sweep": 0})
     grid_l, params_l = solver.grid, solver.params
-    rec["line_sweep"]["launches"] = got["line_sweep"]
+    rec["line_fallback"]["launches"] = got["line_fallback"]
     shape_l = tuple(solver.cur.u.shape)
     if shape_l != BOX383_SHAPE:
         fail(f"long-line box is {shape_l}, expected {BOX383_SHAPE}")
@@ -911,9 +934,9 @@ def main() -> int:
     timing["383 fallback"] = time_steps(solver, dt_l, NUM_LOCAL,
                                         LONG_TIMED_STEPS,
                                         math.prod(shape_l))
-    err = step_vs_plain(solver, dt_l, NUM_LOCAL, ls, "line_sweep",
-                        ls.line_sweep_ref)
-    note("line_sweep", err, [], [], 0)
+    err = step_vs_plain(solver, dt_l, NUM_LOCAL, ls, "fallback_iteration",
+                        ls.fallback_iteration_ref)
+    note("line_fallback", err, [], [], 0)
 
     # ----------------------------------------- 9. line sweep vs plain
     phase("9. line-sweep kernel vs plain PyTorch: 383^3 X / Y / Z (Z at each "
@@ -964,6 +987,51 @@ def main() -> int:
           + "; ".join(f"exact={ex}: " + ", ".join(
               f"R={r} {t:.3f}" for r, t in zs.items())
               for ex, zs in z_tiles.items()) + f" ({smi})")
+
+    # the fallback iteration in one launch, against its plain version and
+    # the composition it replaces, out_prev half of rhs
+    op4 = rhs4 * 0.5
+    vals = (ga_l.val_u, ga_l.val_v, ga_l.val_w, ga_l.val_T)
+    hs = (solver.pa.dx, solver.pa.dy, solver.pa.dz)
+    k_ms, p_ms = [], []
+    print(f"{'grid':<6}{'dir':<4}{'exact':<7}{'fused ms':>10}"
+          f"{'plain ms':>10}{'composed ms':>13}")
+    for axis in range(3):
+        scal = adi3d._nl_scal(axis, solver.pa, dt_l)
+        cls = ga_l.cls_a[axis]
+        for exact in (True, False):
+            fargs = (temp4, rhs4, op4, ga_l.types, ga_l.pk_a[axis], vals,
+                     scal[:6], hs, axis, exact)
+
+            def composed():
+                d = adi3d.fold_d(*adi3d.fallback_rhs(
+                    axis, rhs4, temp4, ga_l, solver.pa, scal[2]), cls)
+                x = ls.line_sweep(temp4[axis], ga_l.pk_a[axis], d, scal[:4],
+                                  axis, exact)
+                out = torch.where(cls != 0, x, op4)
+                return out, torch.where(ga_l.types == NodeType.IN,
+                                        (temp4 + out) / 2.0, temp4)
+
+            got = ls.fallback_iteration(*fargs)
+            for what, want in (("plain", ls.fallback_iteration_ref(*fargs)),
+                               ("composed", composed())):
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    e = max(float((a - b).abs().max())
+                            for a, b in zip(got, want))
+                    fail(f"fallback iteration 383 {axis} {exact} against "
+                         f"the {what} version: max|delta| {e}")
+            del got, want
+            tk, tp = in_turns(lambda: ls.fallback_iteration(*fargs),
+                              lambda: ls.fallback_iteration_ref(*fargs), 3, 1)
+            t_comp = cuda_ms(composed, 1)
+            k_ms.append(tk)
+            p_ms.append(tp)
+            print(f"{'383':<6}{'XYZ'[axis]:<4}{str(exact):<7}{tk:>10.3f}"
+                  f"{tp:>10.2f}{t_comp:>13.2f}", flush=True)
+    note("line_fallback", 0.0, k_ms, p_ms, math.prod(shape_l))
+    print(f"(fused and plain bit for bit, out and tn; {smi})")
+    del op4, vals
     del solver, ga_l, temp4, rhs4
     torch.cuda.empty_cache()
     ga = grid_arrays(grid, dev)
@@ -2313,7 +2381,7 @@ def main() -> int:
     torch.cuda.synchronize()
     got = counters.read()
     want = {k: 0 for k in got}
-    want["line_sweep"] = 2 * per_step
+    want["line_fallback"] = 2 * per_step
     rep = ssolver.dispatch_report(NUM_LOCAL)
     print(f"383^3 over 2 shards, X cut into {ssolver.x_cuts}: dispatch "
           f"{rep['dirs']} pad {rep['pad']}, launches {got}")
@@ -2336,7 +2404,7 @@ def main() -> int:
     if rep["dirs"] != {"X": "fallback", "Y": "pair+stream",
                        "Z": "pair+stream"} or not (
             got["pair_sweep"] and got["stream_sweep"]
-            and got["line_sweep"]):
+            and got["line_fallback"]):
         fail(f"nl=3 over 2 shards: dispatch {rep['dirs']}, launches {got}")
     e = check_close("nl=3 step over 2 shards vs the unsharded step",
                     r.states[0], p7_steps.states[0])
@@ -2537,8 +2605,9 @@ def main() -> int:
         del s, start, blocked, plain
 
     # (c) auto at nl=3 over 2 shards: X on the wavefront, Y and Z on the
-    # pair and stream kernels, against the unblocked split (X on the line
-    # sweep); (d) auto at nl=2 with blocking: X stays on the pair kernel
+    # pair and stream kernels, against the unblocked split (X on the
+    # fallback iteration); (d) auto at nl=2 with blocking: X stays on the
+    # pair kernel
     s, start = split_solver("auto", 2, grid, params)
     counters.reset()
     blocked = split_run(s, start, NBLOCKZ, True, 1, 3, dt)
@@ -2555,8 +2624,8 @@ def main() -> int:
     e = check_close("auto nl=3 over 2 shards, blocking vs unblocked",
                     blocked[0], plain[0])
     print(f"auto nl=3 over 2 shards: the wavefront step within {e:.3e} of "
-          f"the unblocked split's (X on the line sweep; bound {TOL} x "
-          f"max(1, max|field|))")
+          f"the unblocked split's (X on the fallback iteration; bound "
+          f"{TOL} x max(1, max|field|))")
     # the X direction alone at nl=3, from a noisy state whose out layer is
     # stored in bf16 as the pair and stream kernels leave it: auto's
     # wavefront (float32 rows, exact) bit for bit the single device's
@@ -2600,9 +2669,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (e) 383^3 fused_dma over 2 shards: X on the wavefront (383 columns
-    # divide only by 1 and 383: one block), Y and Z on the line sweep; the
-    # step timed on its own (synchronised, the state's copy to the host
-    # left out), beside the unblocked split's
+    # divide only by 1 and 383: one block), Y and Z on the fallback
+    # iteration; the step timed on its own (synchronised, the state's copy
+    # to the host left out), beside the unblocked split's
     s, start = split_solver("fused_dma", 2, grid_l, params_l)
     step_ms = {}
     for nblockz in (0, NBLOCKZ):
@@ -2626,7 +2695,7 @@ def main() -> int:
           f"{step_ms[NBLOCKZ]:.1f} ms for the step, unblocked "
           f"{step_ms[0]:.1f} (exact, {smi}); max|delta| vs phase 8's step "
           f"{e:.3e}")
-    if not (got["tridiag_carry"] and got["line_sweep"]):
+    if not (got["tridiag_carry"] and got["line_fallback"]):
         fail(f"383^3 fused_dma with blocking: launches {got}")
     del s, start, blocked
     torch.cuda.empty_cache()

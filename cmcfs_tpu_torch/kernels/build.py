@@ -38,6 +38,8 @@ SIGNATURES = {
     "cmcfs_pcr_sweep_iter": ([_P] * 9 + [_I] * 6 + [_F] * 8 + [_P], _I),
     "cmcfs_stream_sweep_iter": ([_P] * 10 + [_I] * 8 + [_F] * 5 + [_P], _I),
     "cmcfs_line_sweep": ([_P] * 5 + [_I] * 7 + [_F] * 4 + [_P], _I),
+    # the dual-free fallback iteration on the line sweep's walk
+    "cmcfs_line_fallback": ([_P] * 12 + [_I] * 5 + [_F] * 9 + [_P], _I),
     # the bf16 payload mode: the pair entries take op_bf16, out_bf16 last
     "cmcfs_pair_sweep_iter_bf16": ([_P] * 10 + [_I] * 6 + [_F] * 8
                                    + [_I] * 2 + [_P], _I),

@@ -1,8 +1,10 @@
 // Row build + Thomas solve of one sweep direction on caller-built
 // right-hand sides, all variables of the step: u, v, w, T in 3D, u, v, T
-// in 2D (``nvars`` 4 or 3; T is the last), for sm_90a.  The kernel and its
-// host dispatch; the entry points are line_sweep.cu's (float32 d and x)
-// and line_sweep_bf16.cu's (bf16 d and x).
+// in 2D (``nvars`` 4 or 3; T is the last), for sm_90a; and the whole
+// local iteration of a dual-free fallback direction on the same walk
+// (FallbackRows, below).  The kernel and its host dispatch; the entry
+// points are line_sweep.cu's (float32 d and x, and the fallback
+// iteration) and line_sweep_bf16.cu's (bf16 d and x).
 //
 // Replaces three TPU kernels that compute one function and differ only in
 //   how they tile VMEM: cmcfs_tpu/ops/pallas_sweep_dma.py::fused_sweep_dma
@@ -83,6 +85,10 @@ constexpr int k2dL = 8, k2dR = 8, k2dS = 4;     // 2D sweeps (X and Y)
 constexpr int kZ8L = 64, kZ8S = 3;
 constexpr int kZ32L = 32, kZ32S = 3;
 
+// the fallback iteration's tiles (FallbackRows)
+constexpr int kFbXyL = 128, kFbXyR = 2, kFbXyS = 2;   // 3D X and Y sweeps
+constexpr int kFbZL = 64, kFbZR = 8, kFbZS = 3;       // 3D Z sweep
+
 struct Scal {                 // [v_vis/h^2, t_vis/h^2, 3/dt, 1/(2h)], float32
   float v_vis_h2, t_vis_h2, inv3dt, inv2h;
 };
@@ -94,7 +100,7 @@ struct Scal {                 // [v_vis/h^2, t_vis/h^2, 3/dt, 1/(2h)], float32
 template <int NV, class TD>
 struct LineRows {
   static constexpr int kNF = 1 + NV, kNC = 2, kND = NV;
-  static constexpr bool kMask = true;
+  static constexpr bool kMask = true, kIter = false;
   // bf16 d planes are staged (tile.cuh): read() upcasts them from the tile
   static constexpr bool kStaged = !std::is_same<TD, float>::value;
   const float* adv;
@@ -146,12 +152,186 @@ struct LineRows {
   }
 };
 
-template <int NV, bool kZ, bool kExact, int L, int R, int S, class TD>
+// The whole local iteration of a dual-free fallback direction, 3D, float32
+// (ops/line_sweep.fallback_iteration): the right-hand side, the folds, the
+// line sweep, UpdateSegment and the NODE_IN merge in one launch.
+//
+// Replaces: the fused branch of cmcfs_tpu's _build_and_solve_3d
+//   (cmcfs_tpu/models/adi3d.py:213-302), which the JAX package leaves to
+//   XLA around its line-sweep pallas_call, not a pallas_call of its own,
+//   and, in the port, the PyTorch passes of models/adi3d's fallback around
+//   LineRows' launch (fallback_rhs, fold_d, the two wheres), some 60 passes
+//   over the state an iteration.  The arithmetic is theirs, op for op:
+//   interior rows d = rhs * 3/dt, - v_T (T[i+1] - T[i-1]) / (2h) on the
+//   sweep velocity, + t_phi diss on T, diss in stencil.diss_{x,y,z}_3d's
+//   term order with each derivative divided by its own axis's 2h (a true
+//   division, as stencil.over); BC0 and BC1 rows 0 where FREE, else the
+//   grid's value; identity rows 0; every operation rounded alone
+//   (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn: no contraction into
+//   FMAs), so the launch equals the plain composition bit for bit.  The
+//   rows and the Thomas walk are LineRows': adv (the sweep velocity of
+//   temp) times 1/(2h), build_abc, recip_row0.  Then out = cls != 0 ? x :
+//   out_prev and tn = type == IN ? (temp + out) * 0.5 : temp.
+//
+// What bounds it on this card: memory traffic.  A launch must read temp,
+//   rhs and out_prev of the four variables, the packed code and the node
+//   type and write out and tn: 83 B a cell (as a pair launch's).  It moves
+//   about 165: the four cross-line neighbours of the sweep velocity (16 B,
+//   mostly from cache), the (c', d') scratch written forward and read back
+//   (48), temp read again on the way back with out_prev and the masks.
+//   The grid's boundary values are read at BC rows only.
+//
+// What the design does about it: one launch instead of the composition's
+//   passes, so d and x never go through device memory (32 B a cell each
+//   way) and the right-hand side's derivatives come from registers: the
+//   forward walk keeps the rows before and after (walk.cuh's kIter), so a
+//   row's along-line neighbours are in registers, and the four cross-line
+//   values of the sweep velocity are staged in the chunk as four shifted
+//   copies, which wrap at the array's faces as torch.roll does (a cell on a
+//   face may be an interior row of a line along it).  The backward walk
+//   stages temp, out_prev, the code and the node type beside the scratch
+//   and writes out and tn (Z: through the tile, as the same runs).  Both
+//   go to fresh buffers: neighbouring lines read temp across.  Tiles
+//   (kFb*), from H100 timings at 383^3 of ten X/Y and ten Z tiles
+//   (PERF.md, Findings): X/Y 128 x 2 x 2 (4.1-4.4 ms a launch; LineRows'
+//   64 x 2 x 2 4.8-5.0); Z 64 x 8 x 3, as the pair kernel's (9.0-9.8 ms;
+//   the forward chunk holds 12 planes, the backward 14, so two blocks an
+//   SM; 16-byte runs (64 x 4 x 3) double the time, and 64-byte ones (32 x
+//   16 x 2) spill).
+struct FbScal {               // v_T, t_phi; 2h of the sweep axis and of the
+  float v_T, t_phi, two_h, two_h1, two_h2;    // cross axes in axis order
+};
+
+// The value of u, v, w or T (i < 4) among a row's staged values, by selects
+// (no local-memory array)
+template <int N>
+__device__ __forceinline__ float var_at(const float (&f)[N], int i) {
+  float x = f[0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) x = i == k ? f[k] : x;
+  return x;
+}
+
+// A dual-free fallback iteration: staged temp (0-3), rhs (4-7) and the
+// sweep velocity at -1 and +1 along the first cross axis, then the second
+// (8-11), and the packed code; chain 0 the velocities' rows, chain 1 T's.
+// The backward walk stages temp (0-3) and out_prev (4-7), the code and
+// the node type.
+struct FallbackRows {
+  static constexpr int kNF = 12, kNC = 2, kND = 4, kNB = 8;
+  static constexpr bool kMask = true, kStaged = false, kIter = true;
+  static constexpr int kIn = 0;             // core/types.py NodeType.IN
+  const float *temp, *rhs, *op;
+  const float* val[4];                      // the grid's boundary values
+  const int8_t *pk, *types;
+  float* tn;
+  long long fs;
+  int axis;
+  Scal s;
+  FbScal fb;
+  __device__ static constexpr int chain(int v) { return v == 3; }
+  template <class Ln>
+  __device__ void fetch(const Ln& lane, int i, unsigned sa, long long o,
+                        bool full, int rows_v, int lines_v, const Lines& g,
+                        int i1, int i20) const {
+    const float* adv = temp + axis * fs + o;
+    const int n2 = g.n2, s2 = (int)g.s2, wrap2 = (n2 - 1) * s2;
+    const long long wrap1 = (g.n1 - 1) * g.s1;
+    if (i < 4)
+      lane.copy(sa, temp + i * fs + o, full, rows_v, lines_v, NoShift());
+    else if (i < 8)
+      lane.copy(sa, rhs + (i - 4) * fs + o, full, rows_v, lines_v,
+                NoShift());
+    else if (i == 8)
+      lane.copy(sa, adv + (i1 > 0 ? -g.s1 : wrap1), full, rows_v, lines_v,
+                NoShift());
+    else if (i == 9)
+      lane.copy(sa, adv + (i1 < g.n1 - 1 ? g.s1 : -wrap1), full, rows_v,
+                lines_v, NoShift());
+    else if (i == 10)
+      lane.copy(sa, adv, full, rows_v, lines_v,
+                [=](int l) { return i20 + l > 0 ? -s2 : wrap2; });
+    else
+      lane.copy(sa, adv, full, rows_v, lines_v,
+                [=](int l) { return i20 + l < n2 - 1 ? s2 : -wrap2; });
+  }
+  template <class Ln>
+  __device__ void fetch_bwd(const Ln& lane, int j, unsigned sa, long long o,
+                            bool full, int rows_v, int lines_v) const {
+    lane.copy(sa, (j < 4 ? temp + j * fs : op + (j - 4) * fs) + o, full,
+              rows_v, lines_v, NoShift());
+  }
+  __device__ const int8_t* mask() const { return pk; }
+  __device__ const int8_t* mask_bwd() const { return types; }
+  // t_phi's factor: stencil.diss_{x,y,z}_3d at the row f, from the rows pv
+  // and nx along the line and the cross-line values f[8..11]
+  __device__ float diss(const float (&pv)[kNF], const float (&f)[kNF],
+                        const float (&nx)[kNF]) const {
+    const int o1 = axis == 0 ? 1 : 0, o2 = axis == 2 ? 1 : 2;
+    const float gav =
+        __fdiv_rn(__fsub_rn(var_at(nx, axis), var_at(pv, axis)), fb.two_h);
+    const float go1 =
+        __fdiv_rn(__fsub_rn(var_at(nx, o1), var_at(pv, o1)), fb.two_h);
+    const float go2 =
+        __fdiv_rn(__fsub_rn(var_at(nx, o2), var_at(pv, o2)), fb.two_h);
+    const float h1 = __fdiv_rn(__fsub_rn(f[9], f[8]), fb.two_h1);
+    const float h2 = __fdiv_rn(__fsub_rn(f[11], f[10]), fb.two_h2);
+    const float sav = __fmul_rn(2.f * gav, gav);
+    const float q1 = __fmul_rn(go1, go1), q2 = __fmul_rn(go2, go2);
+    const float d = axis == 0   ? __fadd_rn(__fadd_rn(sav, q1), q2)
+                    : axis == 1 ? __fadd_rn(__fadd_rn(q1, sav), q2)
+                                : __fadd_rn(__fadd_rn(q1, q2), sav);
+    return __fadd_rn(__fadd_rn(d, __fmul_rn(go1, h1)), __fmul_rn(go2, h2));
+  }
+  __device__ void rows(const float (&pv)[kNF], const float (&f)[kNF],
+                       const float (&nx)[kNF], int code, long long o,
+                       float (&a)[2], float (&b)[2], float (&c)[2],
+                       float (&dd)[4]) const {
+    const int cl = code & 3;
+    const bool fv = (code >> 2) & 1, ft = (code >> 3) & 1;
+    const float adv2h = __fmul_rn(var_at(f, axis), s.inv2h);
+    build_abc(cl, fv, false, adv2h, s.v_vis_h2, s.inv3dt + 2.0f * s.v_vis_h2,
+              a[0], b[0], c[0]);
+    build_abc(cl, ft, false, adv2h, s.t_vis_h2, s.inv3dt + 2.0f * s.t_vis_h2,
+              a[1], b[1], c[1]);
+    if (cl == kInterior) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dd[v] = __fmul_rn(f[4 + v], s.inv3dt);
+      const float gT = __fdiv_rn(__fsub_rn(nx[3], pv[3]), fb.two_h);
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+        if (v == axis) dd[v] = __fsub_rn(dd[v], __fmul_rn(fb.v_T, gT));
+      dd[3] = __fadd_rn(dd[3], __fmul_rn(fb.t_phi, diss(pv, f, nx)));
+    } else if (cl == kBC0 || cl == kBC1) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        dd[v] = (v == 3 ? ft : fv) ? 0.f : __ldg(val[v] + o);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dd[v] = 0.f;
+    }
+  }
+  // UpdateSegment and the NODE_IN merge of a row: e holds its staged temp
+  // and out_prev
+  __device__ void epilogue(const float (&e)[kNB], int code, int type,
+                           const float (&x)[4], float (&out)[4],
+                           float (&tnr)[4]) const {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      out[v] = (code & 3) != 0 ? x[v] : e[4 + v];
+      tnr[v] = type == kIn ? __fmul_rn(__fadd_rn(e[v], out[v]), 0.5f) : e[v];
+    }
+  }
+};
+
+// The line sweep's kernel: LineRows (P's default), or FallbackRows (x is
+// then out)
+template <int NV, bool kZ, bool kExact, int L, int R, int S, class TD,
+          class P = LineRows<NV, TD>>
 __global__ void __launch_bounds__(L)
-line_sweep_kernel(LineRows<NV, TD> pol, Lines g, int recip_row0,
-                  TD* __restrict__ x, float* __restrict__ scratch) {
-  walk<LineRows<NV, TD>, kZ, kExact, L, R, S>(pol, g, recip_row0, x,
-                                               scratch);
+line_sweep_kernel(P pol, Lines g, int recip_row0, TD* __restrict__ x,
+                  float* __restrict__ scratch) {
+  walk<P, kZ, kExact, L, R, S>(pol, g, recip_row0, x, scratch);
 }
 
 template <int NV, bool kZ, int L, int R, int S, class TD>
@@ -165,14 +345,10 @@ int launch_tile(const LineRows<NV, TD>& pol, const Lines& g, int exact,
                      1, x, scratch, st);
 }
 
-// One line sweep of d4 (TD) into x4 (TD): the arguments of the entry
-// points (line_sweep.cu).
-template <class TD>
-int launch_lines(const void* adv, const void* pk, const void* d4, void* x4,
-                 void* scratch, int nx, int ny, int nz, int axis, int exact,
-                 int nvars, int z_rows, const Scal& s, void* stream) {
+// The lines of a sweep along ``axis`` of a contiguous (nx, ny, nz) field:
+// false where the axis or the extents are out of a launch's range.
+inline bool axis_lines(int nx, int ny, int nz, int axis, Lines& g) {
   const long long sx = (long long)ny * nz, sy = nz, sz = 1;
-  Lines g;
   g.fs = (long long)nx * ny * nz;
   if (axis == 0) {
     g.n = nx; g.sp = sx; g.n1 = ny; g.s1 = sy; g.n2 = nz; g.s2 = sz;
@@ -181,9 +357,19 @@ int launch_lines(const void* adv, const void* pk, const void* d4, void* x4,
   } else if (axis == 2) {
     g.n = nz; g.sp = sz; g.n1 = nx; g.s1 = sx; g.n2 = ny; g.s2 = sy;
   } else {
-    return (int)cudaErrorInvalidValue;
+    return false;
   }
-  if (!lines_ok(g) || nvars < 3 || nvars > 4 ||
+  return lines_ok(g);
+}
+
+// One line sweep of d4 (TD) into x4 (TD): the arguments of the entry
+// points (line_sweep.cu).
+template <class TD>
+int launch_lines(const void* adv, const void* pk, const void* d4, void* x4,
+                 void* scratch, int nx, int ny, int nz, int axis, int exact,
+                 int nvars, int z_rows, const Scal& s, void* stream) {
+  Lines g;
+  if (!axis_lines(nx, ny, nz, axis, g) || nvars < 3 || nvars > 4 ||
       (z_rows != 0 && (nvars != 4 || axis != 2)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -209,6 +395,41 @@ int launch_lines(const void* adv, const void* pk, const void* d4, void* x4,
   if (z_rows == 32)
     return launch_tile<4, true, kZ32L, 32, kZ32S>(pol, g, exact, x, sc, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool kZ, int L, int R, int S>
+int launch_fallback_tile(const FallbackRows& pol, const Lines& g, int exact,
+                         float* out, float* scratch, cudaStream_t st) {
+  return exact
+             ? launch_walk<FallbackRows, kZ, L, R, S>(
+                   line_sweep_kernel<4, kZ, true, L, R, S, float,
+                                     FallbackRows>,
+                   pol, g, 1, out, scratch, st)
+             : launch_walk<FallbackRows, kZ, L, R, S>(
+                   line_sweep_kernel<4, kZ, false, L, R, S, float,
+                                     FallbackRows>,
+                   pol, g, 1, out, scratch, st);
+}
+
+// One fallback iteration along ``axis`` (pol's pointers set but for its
+// axis and sizes): out_prev into out, temp into tn.
+inline int launch_fallback(FallbackRows pol, void* out, void* scratch,
+                           int nx, int ny, int nz, int axis, int exact,
+                           void* stream) {
+  Lines g;
+  // the wrapped cross-line shifts along i2 are int offsets
+  if (!axis_lines(nx, ny, nz, axis, g) ||
+      (long long)(g.n2 - 1) * g.s2 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  pol.fs = g.fs;
+  pol.axis = axis;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* const o = (float*)out;
+  float* const sc = (float*)scratch;
+  return axis == 2 ? launch_fallback_tile<true, kFbZL, kFbZR, kFbZS>(
+                         pol, g, exact, o, sc, st)
+                   : launch_fallback_tile<false, kFbXyL, kFbXyR, kFbXyS>(
+                         pol, g, exact, o, sc, st);
 }
 
 }  // namespace

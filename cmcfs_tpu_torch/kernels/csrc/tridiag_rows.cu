@@ -60,7 +60,7 @@ constexpr int kZL = 32, kZR = 16, kZS = 3;      // post == 1
 template <int K>
 struct Materialized {
   static constexpr int kNF = 3 + K, kNC = 1, kND = K;
-  static constexpr bool kMask = false, kStaged = false;
+  static constexpr bool kMask = false, kStaged = false, kIter = false;
   const float *a, *b, *c, *d;
   long long fs;
   __device__ static constexpr int chain(int) { return 0; }

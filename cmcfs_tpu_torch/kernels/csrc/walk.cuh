@@ -18,6 +18,16 @@
 //                 values from the tile (else each plane's float slot)
 //   rows(f, code, a, b, c, d)   the rows of every chain and the right-hand
 //                 side of every system, from a row's staged values
+//   kIter         the policy is a whole local iteration (line_sweep.cuh's
+//                 FallbackRows): rows(pv, f, nx, code, o, a, b, c, d) also
+//                 reads the rows before and after along the line and the
+//                 cell's offset o, fetch(..., g, i1, i20) also the block's
+//                 lines; the backward walk stages kNB more planes
+//                 (fetch_bwd) and two mask planes (mask() and mask_bwd())
+//                 after the scratch planes, and hands each row's x to
+//                 epilogue(e, code, type, x, out, tn), storing out where x
+//                 would go and tn into pol.tn.  Without it (LineRows,
+//                 tridiag_rows.cu) none of this is compiled.
 //
 // The solution x is stored as the type of the x pointer: float32, or bf16
 // rounded to nearest even (store_as).
@@ -74,12 +84,23 @@ __host__ __device__ inline long long scratch_lines(const Lines& g) {
   return g.n1 * pad_lines(g.n2);
 }
 
+// The planes a whole-iteration policy stages for the backward walk (0
+// without kIter).
+template <class P>
+__host__ __device__ constexpr int iter_planes() {
+  if constexpr (P::kIter)
+    return P::kNB;
+  else
+    return 0;
+}
+
 // Shared-memory layout of one block (in 4-byte words).  A plane is R rows
 // of kS floats, row r of line l at r * kS + l; a mask plane holds kSegs
 // contiguous byte runs (rows, or lines when kZ) of kW words each.  Forward
 // buffer: the kNF field planes and the mask; backward buffer: the scratch
-// planes (c' of each chain, then d' of each system).  The two walks reuse
-// the same memory.
+// planes (c' of each chain, then d' of each system), and with kIter the
+// policy's kNB planes and its two mask planes.  The two walks reuse the
+// same memory.
 template <class P, bool kZ, int L, int R, int S>
 struct WalkTile {
   static_assert(L % 4 == 0 && (!kZ || R % 4 == 0),
@@ -89,8 +110,10 @@ struct WalkTile {
   static constexpr int kW = (kZ ? R : L) / 4 + 1;
   static constexpr int kMask = P::kMask ? (kZ ? L : R) * kW : 0;
   static constexpr int kNs = P::kNC + P::kND;        // scratch planes
+  static constexpr int kNB = iter_planes<P>();       // the policy's, after
   static constexpr int kFwd = P::kNF * kPlane + kMask;
-  static constexpr int kBwd = kNs * kPlane;
+  static constexpr int kBwd =
+      (kNs + kNB) * kPlane + (P::kIter ? 2 * kMask : 0);
   static constexpr int kWords = S * (kFwd > kBwd ? kFwd : kBwd);
 };
 
@@ -124,6 +147,15 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
     return (int)((moff + row0 + (unsigned)seg * (unsigned)(kZ ? s2 : sp)) &
                  3u);
   };
+  // kIter: the backward walk's second mask plane, read as the first
+  [[maybe_unused]] const int8_t* mt = nullptr;
+  if constexpr (P::kIter) mt = pol.mask_bwd() + base0;
+  [[maybe_unused]] const int toff = (int)((uintptr_t)mt & 3);
+  [[maybe_unused]] auto types_off = [&](int p0, int seg) {
+    const unsigned row0 = (unsigned)p0 * (kZ ? 1u : (unsigned)sp);
+    return (int)((toff + row0 + (unsigned)seg * (unsigned)(kZ ? s2 : sp)) &
+                 3u);
+  };
 
   // ---- the copies: field planes in the tile's mapping, scratch planes
   // lines fast; shared addresses as bytes of the shared window
@@ -140,8 +172,13 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
     const bool full = is_full(k);
     const long long o0 = base0 + (long long)p0 * g.sp;
 #pragma unroll
-    for (int i = 0; i < NF; ++i)
-      pol.fetch(fld, i, st + 4u * (i * kPlane), o0, full, rows_v, lines_v);
+    for (int i = 0; i < NF; ++i) {
+      if constexpr (P::kIter)
+        pol.fetch(fld, i, st + 4u * (i * kPlane), o0, full, rows_v, lines_v,
+                  g, i1, i20);
+      else
+        pol.fetch(fld, i, st + 4u * (i * kPlane), o0, full, rows_v, lines_v);
+    }
     if constexpr (P::kMask)
       copy_mask<kZ, R, kW>(st + 4u * (NF * kPlane), t, rows_v, lines_v,
                            mk + (kZ ? p0 : (long long)p0 * g.sp), sp, s2);
@@ -176,9 +213,15 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
   for (int v = 0; v < ND; ++v) dp[v] = 0.f;
   float* const sc0 = scratch + line0 + t;
 
-  auto fwd_step = [&](int p, const Row& w) {
+  // pv and nx: the rows before and after p along the line (kIter only;
+  // at the line's ends the rows it has there)
+  auto fwd_step = [&](int p, const Row& pv, const Row& w, const Row& nx) {
     float a[NC], b[NC], c[NC], d[ND], q[NC];
-    pol.rows(w.f, w.code, a, b, c, d);
+    if constexpr (P::kIter)
+      pol.rows(pv.f, w.f, nx.f, w.code,
+               base0 + t * g.s2 + (long long)p * g.sp, a, b, c, d);
+    else
+      pol.rows(w.f, w.code, a, b, c, d);
     // q divides (exact, or row 0 unless recip_row0) or multiplies
     const bool divide = kExact || (p == 0 && !recip_row0);
 #pragma unroll
@@ -207,7 +250,9 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
   };
 
   // S buffers: the copies of chunk k + S - 1 run while chunk k is walked
+  [[maybe_unused]] Row pv;
   Row cu, nx;
+  if constexpr (P::kIter) pv = Row{};
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
     if (c < nch) fetch_fwd(c);
@@ -224,13 +269,16 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
       for (int r = 0; r < rows_v; ++r) {
         read_fwd(k, r, nx);
         const int q = k * R + r;
-        if (q > 0) fwd_step(q - 1, cu);
+        if (q > 0) {
+          fwd_step(q - 1, pv, cu, nx);
+          if constexpr (P::kIter) pv = cu;
+        }
         cu = nx;
       }
     }
     __syncthreads();
   }
-  if (valid) fwd_step(n - 1, cu);
+  if (valid) fwd_step(n - 1, pv, cu, cu);
   // this thread's scratch stores before its copies of them below
   __threadfence_block();
   __syncthreads();
@@ -245,12 +293,28 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
       scl.copy(st + 4u * (j * kPlane),
                scratch + j * sps + (long long)p0 * lines + line0, full,
                rows_v, lines_v, NoShift());
+    if constexpr (P::kIter) {
+      const long long o0 = base0 + (long long)p0 * g.sp;
+#pragma unroll
+      for (int j = 0; j < Tl::kNB; ++j)
+        pol.fetch_bwd(fld, j, st + 4u * ((Tl::kNs + j) * kPlane), o0, full,
+                      rows_v, lines_v);
+      const unsigned ms = st + 4u * ((Tl::kNs + Tl::kNB) * kPlane);
+      const long long mo = kZ ? p0 : (long long)p0 * g.sp;
+      copy_mask<kZ, R, kW>(ms, t, rows_v, lines_v, mk + mo, sp, s2);
+      copy_mask<kZ, R, kW>(ms + 4u * Tl::kMask, t, rows_v, lines_v, mt + mo,
+                           sp, s2);
+    }
   };
 
   // ---- backward walk: X/Y store x of a row directly; Z puts it into the
-  // row's d' slot, which it has read
+  // row's d' slot, which it has read.  kIter: the epilogue's out goes where
+  // x would, its tn to pol.tn (Z: into the row's slots of the policy's
+  // first ND planes, which it has read), and x stays the chain's carry
   float xn[ND];
   TX* const x0 = x + base0 + t * g.s2;
+  [[maybe_unused]] TX* tn0 = nullptr;
+  if constexpr (P::kIter) tn0 = pol.tn + base0 + t * g.s2;
   auto bwd_row = [&](int b, int k, int r) {
     float* st = smem + b * Tl::kBwd;
     const int i = r * kS + t, p = k * R + r;
@@ -262,15 +326,39 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
       const float dv = st[(NC + v) * kPlane + i];
       xn[v] = p == n - 1 ? dv
                          : __fsub_rn(dv, __fmul_rn(c[P::chain(v)], xn[v]));
-      if constexpr (kZ)
-        st[(NC + v) * kPlane + i] = xn[v];
-      else
-        store_as(x0, v * g.fs + (long long)p * g.sp, xn[v]);
+      if constexpr (!P::kIter) {
+        if constexpr (kZ)
+          st[(NC + v) * kPlane + i] = xn[v];
+        else
+          store_as(x0, v * g.fs + (long long)p * g.sp, xn[v]);
+      }
+    }
+    if constexpr (P::kIter) {
+      float e[Tl::kNB], o[ND], tn[ND];
+#pragma unroll
+      for (int j = 0; j < Tl::kNB; ++j) e[j] = st[(Tl::kNs + j) * kPlane + i];
+      const unsigned* mw = reinterpret_cast<const unsigned*>(
+          st + (Tl::kNs + Tl::kNB) * kPlane);
+      const int seg = kZ ? t : r, idx = kZ ? r : t;
+      pol.epilogue(e, mask_at<kW>(mw, seg, idx, run_off(k * R, seg)),
+                   mask_at<kW>(mw + Tl::kMask, seg, idx,
+                               types_off(k * R, seg)),
+                   xn, o, tn);
+#pragma unroll
+      for (int v = 0; v < ND; ++v) {
+        if constexpr (kZ) {
+          st[(NC + v) * kPlane + i] = o[v];
+          st[(Tl::kNs + v) * kPlane + i] = tn[v];
+        } else {
+          store_as(x0, v * g.fs + (long long)p * g.sp, o[v]);
+          store_as(tn0, v * g.fs + (long long)p * g.sp, tn[v]);
+        }
+      }
     }
   };
 
-  // Z: x of chunk k from buffer b, as the copies mapped it: L runs of R
-  // contiguous floats
+  // Z: x (kIter: out, and tn) of chunk k from buffer b, as the copies
+  // mapped it: L runs of R contiguous floats
   auto store_tile = [&](int b, int k) {
     const float* st = smem + b * Tl::kBwd + fld.s0 / 4;
     const int rows_v = chunk_rows(k);
@@ -283,6 +371,12 @@ __device__ __forceinline__ void walk(const P& pol, const Lines& g,
 #pragma unroll
         for (int v = 0; v < ND; ++v)
           store_as(o, v * g.fs + oj, st[(NC + v) * kPlane + i]);
+        if constexpr (P::kIter) {
+          TX* const on = pol.tn + base0 + (long long)k * R * g.sp + fld.g0;
+#pragma unroll
+          for (int v = 0; v < ND; ++v)
+            store_as(on, v * g.fs + oj, st[(Tl::kNs + v) * kPlane + i]);
+        }
       }
     }
   };

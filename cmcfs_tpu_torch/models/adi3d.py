@@ -21,7 +21,10 @@ predicates (``_dir_path``, adi3d.py:482-507):
 * "fallback"    per iteration: the RHS built here with ``ops/stencil``,
                 the line sweep (``ops/line_sweep.py``) per line class with
                 the ``cls_b``/``take_b`` dual stitch, then UpdateSegment
-                and the NODE_IN merge.  Backends ``scan``, ``pallas`` and
+                and the NODE_IN merge.  A dual-free axis of a float32
+                fused backend, its lines within each shard, runs all of it
+                as one launch (``line_sweep.fallback_iteration``), the
+                same arithmetic.  Backends ``scan``, ``pallas`` and
                 ``pcr`` take this path with materialized (a, b, c) rows,
                 one set for u, v and w and one for T, solved by
                 ``ops/tridiag.tridiag_solve`` (the tridiag_rows kernel in
@@ -68,7 +71,7 @@ import torch
 
 from ..core.types import BCtype, NodeType
 from ..ops import stencil
-from ..ops.line_sweep import line_sweep
+from ..ops.line_sweep import fallback_iteration, line_sweep
 from ..ops.masks import BC0, BC1, INTERIOR
 from ..ops.pair_sweep import pair_sweep
 from ..ops.pcr_sweep import pcr_sweep
@@ -368,10 +371,26 @@ def _solve_direction(axis, path, rhs, temp, out, gas, pa, scal, num_local,
     iteration of the other paths.  ``solve(rhs, temp, out, gas)`` gives
     the fallback's x of every shard (None: ``_build_and_solve`` on each,
     its lines within the shard; the wavefront's lines cross the shards,
-    ``_wavefront_solve``)."""
+    ``_wavefront_solve``).  Without ``solve``, a dual-free fallback axis of
+    a float32 fused backend runs each shard's iteration as one
+    ``fallback_iteration``."""
     temp, out = list(temp), list(out)
     shards = range(len(temp))
     if path == "fallback":
+        if (solve is None and backend in FUSED
+                and backend not in BF16_BACKENDS
+                and all(g.cls_b[axis] is None for g in gas)):
+            scal6, hs = scal[:6], (pa.dx, pa.dy, pa.dz)
+            for _ in range(num_local):
+                if sync:
+                    sync(temp)
+                for i in shards:
+                    g = gas[i]
+                    out[i], temp[i] = fallback_iteration(
+                        temp[i], rhs[i], out[i], g.types, g.pk_a[axis],
+                        (g.val_u, g.val_v, g.val_w, g.val_T), scal6, hs,
+                        axis, exact)
+            return temp, out
         # UpdateSegment writes every segment cell incl. the BC endpoints
         # (AdiSolver3D.cpp:707-730); identity rows keep their values
         written = [g.cls_a[axis] != 0 for g in gas]

@@ -36,13 +36,24 @@ bf16 payloads (pallas_sweep_dma.py:79-81, :263; pallas_sweep_long.py:
 comes back rounded to bfloat16; ``adv``, the masks and the (c', d')
 carries stay float32.  On the card it is ``line_sweep_bf16.cu``'s entry,
 counted in ``bf16_launches``.
+
+The fallback iteration (``fallback_iteration``): one local iteration of a
+dual-free fallback direction of the 3D ADI step, float32, in one launch of
+the same kernel on the rows of ``line_sweep.cuh``'s FallbackRows: the
+right-hand side of ``models/adi3d.fallback_rhs``, ``fold_d``'s folds, the
+line sweep, UpdateSegment and the NODE_IN merge.  ``fallback_iteration_ref``
+is that composition in plain PyTorch; the kernel equals it bit for bit.
+Counted in ``fused_launches``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.types import NodeType
 from ..kernels.build import LaunchCounter
+from . import stencil
+from .masks import BC0, BC1, INTERIOR
 from .sweep_common import build_abc, decode_pk
 from .tridiag_rows import tridiag_rows_ref, walk_scratch
 
@@ -50,6 +61,8 @@ _F = np.float32
 
 launches = LaunchCounter()
 bf16_launches = LaunchCounter()   # bf16 d and x, 3D and 2D
+fused_launches = LaunchCounter()  # fallback_iteration
+_DISS = (stencil.diss_x_3d, stencil.diss_y_3d, stencil.diss_z_3d)
 # the 3D Z tiles line_sweep.cu builds, by their rows (its kZR first)
 Z_ROWS = (16, 8, 32)
 
@@ -156,3 +169,101 @@ def line_sweep_ref(adv, pk, d4, scal, axis: int, exact: bool):
 def line_sweep_2d_ref(adv, pk, d3, scal, axis: int, exact: bool):
     """Plain PyTorch 2D line sweep on any device; returns x3."""
     return _ref(adv, pk, d3, scal, axis, exact, bc2d=True)
+
+
+def _check_iteration(temp4, rhs4, out4, types, pk, vals, scal, hs, axis):
+    if temp4.dim() != 4 or temp4.shape[0] != 4:
+        raise ValueError(f"temp4 must be (4, nx, ny, nz), got "
+                         f"{tuple(temp4.shape)}")
+    if axis not in range(3):
+        raise ValueError(f"axis must be in 0..2, got {axis}")
+    shape = tuple(temp4.shape[1:])
+    if len(vals) != 4:
+        raise ValueError(f"vals must hold 4 tensors, got {len(vals)}")
+    named = [("temp4", temp4), ("rhs4", rhs4), ("out4", out4),
+             ("types", types), ("pk", pk)] + [
+        (f"vals[{i}]", v) for i, v in enumerate(vals)]
+    for name, t in named:
+        dtype = torch.int8 if name in ("types", "pk") else torch.float32
+        want = (4,) + shape if name.endswith("4") else shape
+        if t.device != temp4.device:
+            raise ValueError(f"{name} is on {t.device}, temp4 on "
+                             f"{temp4.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    s = np.asarray(scal, dtype=np.float32)
+    h = np.asarray(hs, dtype=np.float32)
+    if s.shape != (6,) or h.shape != (3,):
+        raise ValueError(f"scal must hold 6 values and hs 3, got shapes "
+                         f"{s.shape}, {h.shape}")
+    return s, h
+
+
+def fallback_iteration(temp4, rhs4, out4, types, pk, vals, scal, hs,
+                       axis: int, exact: bool):
+    """One local iteration of a dual-free fallback direction along
+    ``axis``; returns (out4, tn4), new tensors.
+
+    ``temp4``, ``rhs4``, ``out4``: (4, nx, ny, nz) float32, u, v, w, T;
+    ``types`` the node types and ``pk`` the packed masks of the axis's
+    line classes (``sweep_common.pack_masks``), (nx, ny, nz) int8;
+    ``vals`` the grid's boundary values of u, v, w, T; ``scal`` = [v_vis/
+    h^2, t_vis/h^2, 3/dt, 1/(2h), v_T, t_phi] (``models/adi3d._nl_scal``'s
+    first six) and ``hs`` = (dx, dy, dz), float32.  CUDA tensors launch
+    ``cmcfs_line_fallback`` or raise; CPU tensors run
+    ``fallback_iteration_ref``."""
+    s, h = _check_iteration(temp4, rhs4, out4, types, pk, vals, scal, hs,
+                            axis)
+    if temp4.device.type == "cpu":
+        return fallback_iteration_ref(temp4, rhs4, out4, types, pk, vals, s,
+                                      h, axis, exact)
+    if temp4.device.type != "cuda":
+        raise RuntimeError(f"fallback_iteration has no kernel for "
+                           f"{temp4.device}")
+    from ..kernels.build import load_library
+    fn = load_library().lib.cmcfs_line_fallback
+    shape = tuple(types.shape)
+    out, tn = torch.empty_like(temp4), torch.empty_like(temp4)
+    # the line sweep's scratch: c' of the two row sets, d' of u, v, w, T
+    scratch = walk_scratch(6, shape[axis], *(m for i, m in enumerate(shape)
+                                             if i != axis), temp4.device)
+    two_h = [float(_F(2.0) * x) for x in h]
+    with torch.cuda.device(temp4.device):
+        stream = torch.cuda.current_stream(temp4.device).cuda_stream
+        err = fn(temp4.data_ptr(), rhs4.data_ptr(), out4.data_ptr(),
+                 pk.data_ptr(), types.data_ptr(),
+                 *(v.data_ptr() for v in vals), out.data_ptr(),
+                 tn.data_ptr(), scratch.data_ptr(), *shape, axis,
+                 int(exact), *(float(v) for v in s), two_h[axis],
+                 *(x for i, x in enumerate(two_h) if i != axis), stream)
+    if err != 0:
+        raise RuntimeError(f"fallback_iteration kernel launch failed: CUDA "
+                           f"error {err} (shape {shape}, axis {axis})")
+    fused_launches.count += 1
+    return out, tn
+
+
+def fallback_iteration_ref(temp4, rhs4, out4, types, pk, vals, scal, hs,
+                           axis: int, exact: bool):
+    """Plain PyTorch ``fallback_iteration`` on any device: the composition
+    of ``models/adi3d``'s fallback (``fallback_rhs``, ``fold_d``, the line
+    sweep, UpdateSegment, the NODE_IN merge), the FREE bits and classes
+    read from ``pk``."""
+    _, _, inv3dt, _, v_T, t_phi = np.asarray(scal, dtype=np.float32)
+    hs = tuple(_F(x) for x in hs)
+    cls, bcv, bct = decode_pk(pk)
+    d = rhs4 * inv3dt
+    d[axis] = d[axis] - v_T * stencil.d1(temp4[3], hs[axis], axis)
+    d[3] = d[3] + t_phi * _DISS[axis](temp4[0], temp4[1], temp4[2], *hs)
+    d_bc = torch.where(torch.stack((bcv, bcv, bcv, bct)) == 1, 0.0,
+                       torch.stack(tuple(vals)))
+    d = torch.where(cls == INTERIOR, d,
+                    torch.where((cls == BC0) | (cls == BC1), d_bc, 0.0))
+    x = line_sweep_ref(temp4[axis], pk, d, scal[:4], axis, exact)
+    out = torch.where(cls != 0, x, out4)
+    tn = torch.where(types == NodeType.IN, (temp4 + out) / 2.0, temp4)
+    return out, tn
