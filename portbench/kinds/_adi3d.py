@@ -9,23 +9,28 @@ way and hands them here, with the time step, the iteration counts and
 iteration counts again from the configuration alone.
 
 Set-up: ``make_solver_3d("ADI", backend, exact=True)`` and ``solver.init``
-as ``cli3d`` makes them, then the seeded state: the grid's values plus an
-N(0, ``NOISE``) perturbation of the IN cells' u, v, w and T, made from the
-seed on the device and handed over by ``AdiSolver3D.set_state``.  A step
+on the first card, and with ``shards`` > 1 the X split over the cell's
+cards, ``solver.set_plan(make_x_mesh(shards, devices=devices),
+nblockz=nblockz)``, as ``cli3d.run_case`` makes them; then the seeded
+state: the grid's values plus an N(0, ``NOISE``) perturbation of the IN
+cells' u, v, w and T, made from the seed on the first card and handed
+over by ``AdiSolver3D.set_state``, which splits it under a plan.  A step
 is ``cli3d.run_case``'s: ``update_boundaries()``, then ``time_step(dt,
 num_global, num_local, compute_error=(i % 10 == 0))`` with the divergence
 gate.  The control runs the port's bf16 payload mode (``fused_bf16``) in
 place of the traffic's backend.
 
 The comparison (``judge``): the grid the port derived (types, BCs,
-values, line classes, pass B, each axis's path), the seeded start, the
-first warm-up step from it, and one step of the window drawn among the
-error steps, from the state the port held before it.
+values, line classes, pass B, each axis's path; under a plan the X slabs'
+owned planes joined), the seeded start, the first warm-up step from it,
+and one step of the window drawn among the error steps, from the state
+the port held before it (under a plan gathered from the shards).
 """
 from __future__ import annotations
 
 import gc
 import time
+import types
 
 import numpy as np
 import torch
@@ -35,6 +40,9 @@ ERR_EVERY = 10
 # the scale of the seed's perturbation of the IN cells
 NOISE = 0.01
 CONTROL_BACKEND = "fused_bf16"
+# the fields of the port's grid arrays that check.grid_differing reads
+GRID_FIELDS = ("types", "bc_vel", "bc_temp", "val_u", "val_v", "val_w",
+               "val_T", "cls_a", "cls_b", "take_b")
 
 
 def noise(seed: int, shape, device):
@@ -42,6 +50,24 @@ def noise(seed: int, shape, device):
     gen.manual_seed(seed)
     return NOISE * torch.randn((4,) + tuple(shape), generator=gen,
                                device=device, dtype=torch.float32)
+
+
+def host_grid(parts, halo: int):
+    """The fields ``GRID_FIELDS`` of the whole grid on the host, from the
+    port's grid arrays: one ``GridArrays3D`` (``halo`` 0), or a plan's X
+    slabs, whose owned planes (``halo`` planes in from each X end) are
+    joined in order."""
+    def join(ts):
+        if ts[0] is None:
+            return None
+        return torch.cat([t[halo:t.shape[0] - halo].cpu() for t in ts])
+
+    out = {}
+    for name in GRID_FIELDS:
+        f = [getattr(p, name) for p in parts]
+        out[name] = (tuple(join(ax) for ax in zip(*f))
+                     if isinstance(f[0], tuple) else join(f))
+    return types.SimpleNamespace(**out)
 
 
 class Case:
@@ -53,12 +79,14 @@ class Case:
     trace_from = 2 + ERR_EVERY
 
     def __init__(self, grid, params, dt: float, num_global: int,
-                 num_local: int, backend: str, device, seed: int,
-                 control: bool, reference):
+                 num_local: int, backend: str, devices, seed: int,
+                 control: bool, reference, shards: int = 1,
+                 nblockz: int = 0):
         from cmcfs_tpu_torch.core.types import NodeType
         from cmcfs_tpu_torch.models.solver3d import (SolverError,
                                                      make_solver_3d)
 
+        device = devices[0]
         t0 = time.perf_counter()
         if device.type == "cuda":
             from cmcfs_tpu_torch.kernels.build import load_library
@@ -68,6 +96,7 @@ class Case:
         self.device, self.seed, self.reference = device, seed, reference
         self.backend = CONTROL_BACKEND if control else backend
         self.dt, self.ng, self.nl = dt, num_global, num_local
+        self.wavefront = shards > 1 and nblockz > 1
         s = make_solver_3d("ADI", backend=self.backend, exact=True,
                            device=device)
         s.init(grid, params)
@@ -79,6 +108,10 @@ class Case:
         x0 = torch.where(s.ga.types == NodeType.IN,
                          init4 + noise(seed, self.shape, device), init4)
         del init4
+        if shards > 1:
+            from cmcfs_tpu_torch.parallel.mesh import make_x_mesh
+            s.set_plan(make_x_mesh(shards, devices=devices),
+                       nblockz=nblockz)
         s.set_state(list(x0), list(x0))
         self.first_in = x0.cpu()
         # where the case's set-up goes (printed beside set_up)
@@ -104,7 +137,7 @@ class Case:
     def warm_up(self) -> None:
         """An error step, which the comparison checks, and one without."""
         self.step(0)
-        self.first_out = torch.stack(tuple(self.solver.cur)).cpu()
+        self.first_out = torch.stack(tuple(self.solver.state()[0])).cpu()
         self.first_err = self.solver.last_err
         self.step(1)
 
@@ -124,15 +157,22 @@ class Case:
         port's state, so that the reference runs in the memory it
         leaves."""
         s = self.solver
-        self.ga_host = type(s.ga)(*[
-            tuple(None if t is None else t.cpu() for t in f)
-            if isinstance(f, tuple) else f.cpu() for f in s.ga])
+        if s.plan is None:
+            self.ga_host = host_grid([s.ga], 0)
+        else:
+            self.ga_host = host_grid(s.ga.x, 1)
         self.dirs_port = s.dispatch_report(self.nl)["dirs"]
+
+        def whole(st):
+            if s.plan is None:
+                return torch.stack(tuple(st))
+            return s.plan.gather(list(st), -3)
+
         self.window = None
         if sample is not None:
             (pre_cur, pre_next), out, err = sample
-            self.window = ([torch.stack(tuple(t))
-                            for t in (pre_cur, pre_next, out)], err)
+            self.window = ([whole(t) for t in (pre_cur, pre_next, out)],
+                           err)
         del self.solver, s, sample
         gc.collect()
         if self.device.type == "cuda":
@@ -191,7 +231,8 @@ class Case:
             checks[f"{tag}_err_gap"] = {"value": egap,
                                         "limit": limits["err_gap"]}
         checks["steps_failed"] = {"value": failed, "limit": 0}
-        work = {"ng": ng, "nl": nl, "axes": [
+        work = {"ng": ng, "nl": nl, "backend": self.backend,
+                "wavefront": self.wavefront, "axes": [
             {"n": int(g.types.shape[ax]), "pair": dirs[ax] == "pair",
              "dual": duals[ax]} for ax in range(3)]}
         return checks, work

@@ -20,9 +20,11 @@ from portbench.reference import grid as rgrid
 
 
 def build(cfg: dict, traffic: dict, device, seed: int, shape=None,
-          control: bool = False) -> _adi3d.Case:
+          control: bool = False, devices=None) -> _adi3d.Case:
     """The cell's case at the traffic's ``grid_n`` cells a side, or at
-    ``shape`` (a rehearsal)."""
+    ``shape`` (a rehearsal), on ``devices`` (the cell's cards; ``device``
+    alone where none are given), X split into the traffic's ``shards``
+    (default 1) with its ``nblockz`` (default 0)."""
     from cmcfs_tpu_torch.core.params import FluidParams
     from cmcfs_tpu_torch.core.types import BCtype, NodeType
     from cmcfs_tpu_torch.geom.synthetic import lid_cavity_3d
@@ -50,5 +52,6 @@ def build(cfg: dict, traffic: dict, device, seed: int, shape=None,
                 cfg["dt"], cfg["num_global"], cfg["num_local"])
 
     return _adi3d.Case(grid, params, cfg["dt"], cfg["num_global"],
-                       cfg["num_local"], traffic["backend"], device, seed,
-                       control, reference)
+                       cfg["num_local"], traffic["backend"],
+                       devices or [device], seed, control, reference,
+                       traffic.get("shards", 1), traffic.get("nblockz", 0))

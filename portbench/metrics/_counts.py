@@ -13,12 +13,26 @@ a kernel reads again; float32 fields are 4 bytes a cell, the int8 masks 1.
 * A line-sweep launch (one local iteration of one line class, on a
   right-hand side built outside): the sweep velocity (4), the packed
   masks (1), d of the four variables (16) in, x of the four (16) out:
-  37 B a cell; a fallback direction makes ``num_local`` launches, twice
-  that with a pass B.
+  37 B a cell; a fallback direction makes ``num_global`` x
+  ``num_local`` launches, twice that with a pass B.
+* A fused fallback launch (one whole local iteration of a fallback
+  direction, the right-hand side built inside): temp, rhs and out_prev
+  of the four in (48), the packed masks and the node types (2), out and
+  tn of the four out (32): 82 B a cell, ``num_global`` x ``num_local``
+  launches a direction.  The port fuses a fallback axis where its
+  backend is a float32 fused one, the axis has no pass B and no
+  wavefront solves it (``cmcfs_tpu_torch/models/adi3d.py``,
+  ``_solve_direction``); the lists below are copies of that module's.
 
 At 256^3 (16,777,216 cells) a pair's bound is 83 x 16.78 M / 3.35 TB/s
 = 0.416 ms; at 383^3 (56,181,887 cells) a line-sweep launch's is 37 x
-56.18 M / 3.35 TB/s = 0.62 ms.
+56.18 M / 3.35 TB/s = 0.62 ms, a fused fallback launch's 82 x 56.18 M /
+3.35 TB/s = 1.375 ms.
+
+The record's ``backend`` is the one the traffic (or the control) names,
+``auto`` meaning ``fused_nl``; its ``wavefront`` is whether a split X
+direction takes the Z-blocked wavefront.  Each count is of the whole
+grid: over several cards it is the work of all of them.
 """
 from __future__ import annotations
 
@@ -27,6 +41,13 @@ HBM_BYTES_S = 3.35e12
 PAIR_B = 48 + 3 + 32
 PAIR_DUAL_B = PAIR_B + 1
 LINE_B = 4 + 1 + 16 + 16
+FUSED_LINE_B = 48 + 2 + 32
+# cmcfs_tpu_torch/models/adi3d.py: FUSED, BF16_BACKENDS and what "auto"
+# resolves to
+FUSED = ("fused_nl", "fused_pcr", "fused_bf16", "fused_pcr_bf16",
+         "fused_full", "fused_dma", "fused")
+BF16_BACKENDS = ("fused_bf16", "fused_pcr_bf16")
+AUTO = "fused_nl"
 
 
 def pair_bytes(rec) -> float:
@@ -36,11 +57,24 @@ def pair_bytes(rec) -> float:
                      for a in rec.axes if a["pair"]))
 
 
+def fused_fallback(rec, ax: int) -> bool:
+    """Whether the port runs a fallback on axis ``ax`` as fused
+    launches: a float32 fused backend, no pass B, no wavefront."""
+    backend = AUTO if rec.backend == "auto" else rec.backend
+    return (backend in FUSED and backend not in BF16_BACKENDS
+            and not rec.axes[ax]["dual"]
+            and not (ax == 0 and rec.wavefront))
+
+
 def line_bytes(rec) -> float:
-    """Bytes a step of the line-sweep launches (the fallback
-    directions)."""
-    return float(sum(rec.ng * rec.nl * (2 if a["dual"] else 1) * LINE_B
-                     * rec.cells for a in rec.axes if not a["pair"]))
+    """Bytes a step of the line-sweep kernel's launches (the fallback
+    directions): fused ones at 82 B, the others at 37, twice with a pass
+    B."""
+    per_dir = rec.ng * rec.nl * rec.cells
+    return float(sum(
+        per_dir * (FUSED_LINE_B if fused_fallback(rec, ax)
+                   else LINE_B * (2 if a["dual"] else 1))
+        for ax, a in enumerate(rec.axes) if not a["pair"]))
 
 
 def step_bytes(rec) -> float:
@@ -56,6 +90,7 @@ def bound_ms(nbytes: float) -> float:
 
 def kernel_seconds(rec, names) -> float:
     """Device seconds of the traced operations whose name is one of
-    ``names`` as a function or a template (``name(`` or ``name<``)."""
-    return sum(e - s for n, s, e in rec.trace.kernels
+    ``names`` as a function or a template (``name(`` or ``name<``),
+    summed over the cards."""
+    return sum(e - s for n, s, e, _ in rec.trace.kernels
                if any(k + c in n for k in names for c in "(<")) * 1e-6

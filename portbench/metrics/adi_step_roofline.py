@@ -1,5 +1,6 @@
 """The step's compulsory bytes (``_counts.step_bytes``) / 3.35 TB/s, as a
-share of the device's busy time a traced step."""
+share of the device's busy time a traced step, summed over the cards: a
+share of one card's peak, whatever the number of cards."""
 from portbench.metrics import _counts
 
 

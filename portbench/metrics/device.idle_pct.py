@@ -1,8 +1,9 @@
-"""100 - the device's busy share of the traced steps: the union of the
-intervals in which an operation ran, over the device's span of those
-steps, from the start of its first operation to the end of its last (the
-synchronize that opens the traced stretch, and the one that closes it,
-are not the program's and do not count)."""
+"""100 - the cards' pooled busy share of the traced steps: on each card
+the union of the intervals in which an operation ran, over that card's
+span of those steps, from the start of its first operation to the end of
+its last, both summed over the cards (the synchronize that opens the
+traced stretch, and the one that closes it, are not the program's and do
+not count)."""
 
 
 def read(rec):

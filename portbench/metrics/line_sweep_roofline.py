@@ -1,6 +1,8 @@
-"""The line-sweep launches' compulsory bytes (``_counts.line_bytes``) /
-3.35 TB/s, as a share of the line-sweep kernel's device time a traced
-step; nothing where it did not run or no direction takes the fallback."""
+"""The line-sweep kernel's launches' compulsory bytes
+(``_counts.line_bytes``: a fused fallback launch's 82 B a cell, a
+LineRows launch's 37) / 3.35 TB/s, as a share of the line-sweep kernel's
+device time a traced step, summed over the cards; nothing where it did
+not run or no direction takes the fallback."""
 from portbench.metrics import _counts
 
 

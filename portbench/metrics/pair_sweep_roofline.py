@@ -1,6 +1,7 @@
 """The pair directions' compulsory bytes (``_counts.pair_bytes``) / 3.35
-TB/s, as a share of the pair kernel's device time a traced step; nothing
-where no pair kernel ran or no direction takes the pair form."""
+TB/s, as a share of the pair kernel's device time a traced step, summed
+over the cards; nothing where no pair kernel ran or no direction takes
+the pair form."""
 from portbench.metrics import _counts
 
 

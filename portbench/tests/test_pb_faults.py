@@ -2,8 +2,8 @@
 once for each fault a cell of this benchmark can have: a step that
 returns its state unchanged, half of the grid's lines left out of the
 step (their cells keep the old state), and one value altered where the
-step produces it.  (No cell spans chips, so no exchange can be left
-out.)"""
+step produces it.  (No cell spans chips; a split cell's exchange left
+out is ``test_pb_harness.test_split_without_exchange_is_caught``.)"""
 import pytest
 import torch
 
